@@ -135,7 +135,9 @@ class CudaKernel:
             return None
         nvcc = nvcc_path()
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        scratch = lib.parent / f"tmp-{os.getpid()}"
+        # nvcc's own temporary files, one directory per build: the builds
+        # of build_all run at once and each removes its directory when done
+        scratch = lib.parent / f"tmp-{lib.stem}-{os.getpid()}"
         scratch.mkdir(exist_ok=True)
         with open(lib.with_suffix(".log"), "w") as log:
             proc = subprocess.Popen(

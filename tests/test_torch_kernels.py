@@ -6,6 +6,8 @@ versions on the card by ``tests/test_torch_gpu.py``."""
 
 from torch_parity import kernel_inputs
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -231,3 +233,64 @@ def test_cpu_tensors_do_not_count_launches():
     tops.gcd_batch([12, 18], [8, 27], device="cpu")
     tops.divisibility_scan([6], [2], device="cpu")
     assert launch_counts() == before
+
+
+# --------------------------------------------------------------------------- #
+# the build (with a stand-in for nvcc: the real one runs on the card's host)  #
+# --------------------------------------------------------------------------- #
+
+_FAKE_NVCC = """#!/bin/sh
+# stand-in for nvcc: keeps a temporary file in $TMPDIR while it "compiles"
+# (longer for some sources), then checks it is still there
+for last; do :; done
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+echo "ptxas info    : Used 8 registers" 
+echo partial > "$TMPDIR/$$.s" || exit 3
+case "$last" in *divmask*) ;; *) sleep 0.5 ;; esac
+[ -f "$TMPDIR/$$.s" ] || { echo "can't open $TMPDIR/$$.s"; exit 1; }
+echo lib > "$out"
+"""
+
+
+def test_build_all_runs_the_builds_side_by_side(tmp_path, monkeypatch):
+    """One nvcc per source, started together, each with its own temporary
+    directory (one build finishing early must not pull another's files
+    away); each library lands under its hashed name with its log."""
+    from repro_torch.kernels import KERNELS, build_all, cuda
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(cuda, "build_dir", lambda: tmp_path / "build")
+    (tmp_path / "build").mkdir()
+    assert cuda.nvcc_path() == str(nvcc)
+    build_all()
+    for k in KERNELS.values():
+        assert k.library_path().read_text() == "lib\n"
+        assert "Used 8 registers" in k.build_log()
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()
+                  if p.is_dir()) == []
+
+
+def test_nvcc_lookup_names_every_place_tried(monkeypatch):
+    from torch.utils import cpp_extension
+
+    from repro_torch.kernels import cuda
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent/cuda-home")
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this host has a CUDA toolkit")
+    with pytest.raises(RuntimeError) as err:
+        cuda.nvcc_path()
+    msg = str(err.value)
+    for place in ("PATH", "/nonexistent/cuda-home/bin/nvcc",
+                  "CUDA_PATH (unset)", "cpp_extension.CUDA_HOME (unset)",
+                  "/usr/local/cuda/bin/nvcc"):
+        assert place in msg, place
