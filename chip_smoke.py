@@ -32,18 +32,23 @@ report where their wall time went, ``sharded_time_split``):
                  ``kv="sharded"`` with the same counters;
   batching_full  ``case_batching``'s full configuration (4000 requests),
                  ``kv="sharded"`` against ``kv="vec"``;
-  launcher       ``repro_torch.launch.serve --null-model --kv sharded``.
+  launcher       ``repro_torch.launch.serve --null-model --kv sharded``,
+                 each kernel held against its plain version on the
+                 inputs that run gave it.
 
 Then the table of the reference's six Pallas kernels, the card's name and
 power limit, the ``kernels`` line (launches on the ``case_serving`` sharded
 run, error, times and bound at that run's shapes) and, last,
 ``{"ok": true, "device": {...}}``.
 
-Every check raises; the first failure prints ``{"phase": ..., "error":
-..., "traceback": ...}`` on stdout and exits 1.  No measurement decides
-pass or fail.  Kernel times are CUDA-event times: ``graph_ms`` per
-launch replayed from a captured CUDA graph (no host work between
-launches; ``ms`` in the ``kernels`` line), ``wrapper_ms`` per call of the
+Every path that launches the kernels holds each kernel against its plain
+version on one input of every distinct shape and dtype the path gave it,
+and times it at the largest.  Every check raises; the first failure
+prints ``{"phase": ..., "error": ..., "traceback": ...}`` on stdout and
+exits 1.  No measurement decides pass or fail.  Kernel times are
+CUDA-event times: ``graph_ms`` per launch replayed from a captured CUDA
+graph (no host work between launches; ``ms`` in the ``kernels`` line,
+null when the capture failed), ``wrapper_ms`` per call of the
 Python wrapper in a loop (what a caller that issues launches one by one
 pays), ``plain_ms`` per call of the plain version in a loop, and
 ``library_ms`` / ``library_wrapper_ms`` the same two for ``torch.gcd``
@@ -336,10 +341,11 @@ def check_and_time(name: str, args) -> dict:
 
 
 class Capture:
-    """Keeps the largest inputs each kernel wrapper saw during a run, so
-    that the kernels can be checked and measured at the shapes the
-    serving path gave them.  The wrapped functions call the originals,
-    whose launch counts are unchanged."""
+    """Keeps one copy of the inputs of every distinct shape and dtype that
+    each kernel wrapper saw during a run (``inputs[name][key]``; the
+    callers pad to bucketed widths, so there are few), so that the kernels
+    can be checked at every shape the path gave them.  The wrapped
+    functions call the originals, whose launch counts are unchanged."""
 
     def __init__(self):
         from repro_torch.kernels import factorize, gcd, ops
@@ -356,10 +362,11 @@ class Capture:
 
         def wrapped(*args):
             if args[0].device.type == DEVICE:
-                size = sum(a.numel() for a in args)
-                old = self.inputs.get(name)
-                if old is None or size >= sum(a.numel() for a in old):
-                    self.inputs[name] = tuple(a.clone() for a in args)
+                key = (str(args[0].dtype).replace("torch.", ""),
+                       tuple(tuple(a.shape) for a in args))
+                seen = self.inputs.setdefault(name, {})
+                if key not in seen:
+                    seen[key] = tuple(a.clone() for a in args)
             return orig(*args)
 
         setattr(mod, name, wrapped)
@@ -375,15 +382,20 @@ class Timers:
     run: the whole table rebuild (``refresh_s``) and, within it, the calls
     that upload to the card, launch the kernels and read the results back
     (``kernel_calls_s``: the per-shard scan with its mask and gcd
-    kernels, and the squarefree decode).  What remains of the refresh is
-    host Python; what remains of the run is the tick loop."""
+    kernels, and the squarefree decode; neither calls the other), and the
+    kernel launches made inside those calls (``kernel_calls_launches``).
+    What remains of the refresh is host Python; what remains of the run
+    is the tick loop."""
 
     def __init__(self):
+        from repro_torch import kernels
         from repro_torch.core.engine import shard
         from repro_torch.kernels import ops
         from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
 
-        self.seconds = {"refresh_s": 0.0, "kernel_calls_s": 0.0}
+        self.seconds = {"refresh_s": 0.0, "kernel_calls_s": 0.0,
+                        "kernel_calls_launches": 0}
+        self._launches = lambda: sum(kernels.launch_counts().values())
         self._undo = []
         self._wrap(ShardedPagedKVCache, "refresh_tables", "refresh_s")
         self._wrap(shard, "_scan_sharded", "kernel_calls_s")
@@ -393,11 +405,14 @@ class Timers:
         orig = getattr(owner, name)
 
         def wrapped(*args, **kw):
-            t0 = time.perf_counter()
+            n0, t0 = self._launches(), time.perf_counter()
             try:
                 return orig(*args, **kw)
             finally:
                 self.seconds[key] += time.perf_counter() - t0
+                if key == "kernel_calls_s":
+                    self.seconds["kernel_calls_launches"] += (
+                        self._launches() - n0)
 
         setattr(owner, name, wrapped)
         self._undo.append((owner, name, orig))
@@ -408,9 +423,9 @@ class Timers:
 
 
 def traced(run, *args, **kw):
-    """``run(*args, **kw)`` with every kernel launch counted, the largest
-    kernel inputs captured and the refresh timed: ``(result, launches,
-    captured inputs, seconds)``."""
+    """``run(*args, **kw)`` with every kernel launch counted (from 0), the
+    kernel inputs of each distinct shape captured and the refresh timed:
+    ``(result, launches, captured inputs, seconds)``."""
     from repro_torch import kernels
 
     capture, timers = Capture(), Timers()
@@ -424,19 +439,62 @@ def traced(run, *args, **kw):
     return out, launches, capture.inputs, timers.seconds
 
 
+def check_path(label: str, launches: dict, inputs: dict,
+               timed: bool = True) -> list:
+    """Every kernel of a path launched, and held against its plain version
+    on every distinct shape and dtype the path gave it (and in the other
+    of int32 / int64 where the values fit); with ``timed``, also measured
+    at the largest.  Emits one line per kernel and returns the lines."""
+    if sorted(inputs) != sorted(PORTED) or min(
+            launches[n] for n in PORTED) <= 0:
+        raise AssertionError(f"{label}: a kernel was not launched on the "
+                             f"path: {launches}")
+    rows = []
+    for name in PORTED:
+        seen = inputs[name]
+        top = max(seen, key=lambda k: sum(a.numel() for a in seen[k]))
+        also = set()
+        for key, args in seen.items():
+            if key != top or not timed:
+                check_exact(name, args)
+            other = other_dtype(args)
+            if other is not None:
+                check_exact(name, other)
+                also.add(str(other[0].dtype).replace("torch.", ""))
+        row = (check_and_time(name, seen[top]) if timed else
+               {"name": name, "max_abs_err": 0})
+        row.update(shapes_checked=len(seen), also_exact_as=sorted(also),
+                   largest=[list(map(list, top[1])), top[0]])
+        emit({"phase": f"kernel_{label}", **row})
+        rows.append(row)
+    return rows
+
+
 def time_split(wall_s: float, seconds: dict, launches: dict,
                rows: list) -> dict:
-    """Where a sharded run's wall time went, and an upper bound on the
-    card's busy time: every launch costed at the graph-replay time of the
-    run's largest inputs of its kernel."""
-    busy = sum(launches[r["name"]] * (r["graph_ms"] or r["wrapper_ms"])
-               for r in rows) / 1e3
+    """Where a sharded run's wall time went, and the card's busy share two
+    ways.  Upper bound (measured): the host seconds inside the calls that
+    reach the card, over wall; each call waits for its results, so the
+    card works only inside them.  It holds only when every launch fell
+    inside them, else it is null.  Estimate: every launch costed at the
+    graph-replay time of the run's largest inputs of its kernel (replay
+    hides the per-launch overhead; smaller shapes cost less); null when a
+    graph capture failed."""
+    total = sum(launches[n] for n in PORTED)
+    inside = seconds["kernel_calls_launches"]
+    graph = [r["graph_ms"] for r in rows]
+    est = (None if None in graph else
+           sum(launches[r["name"]] * r["graph_ms"] for r in rows) / 1e3)
     return {"wall_s": wall_s, **seconds,
             "refresh_host_python_s": seconds["refresh_s"]
             - seconds["kernel_calls_s"],
             "outside_refresh_s": wall_s - seconds["refresh_s"],
-            "device_busy_upper_s": busy,
-            "device_busy_upper_share": busy / wall_s}
+            "launches_outside_kernel_calls": total - inside,
+            "device_busy_upper_share": (seconds["kernel_calls_s"] / wall_s
+                                        if inside == total else None),
+            "device_busy_graph_est_s": est,
+            "device_busy_graph_est_share": (None if est is None
+                                            else est / wall_s)}
 
 
 # --------------------------------------------------------------------------- #
@@ -628,21 +686,9 @@ def phase_serving_full(ctx: Context) -> dict:
         raise AssertionError("fewer than 100 concurrent requests per step")
     if sh["cross_composites"] <= 0:
         raise AssertionError("no cross-shard composites: gcd path idle")
-    if sorted(inputs) != sorted(PORTED) or min(
-            ctx.launches[n] for n in PORTED) <= 0:
-        raise AssertionError(f"a kernel was not launched on the serving "
-                             f"path: {ctx.launches}")
     # each kernel against its plain version on the inputs the sharded run
     # gave it; these times are the kernels line's
-    for name in PORTED:
-        args = inputs[name]
-        row = check_and_time(name, args)
-        other = other_dtype(args)
-        if other is not None:
-            check_exact(name, other)
-            row["also_exact_as"] = str(other[0].dtype).replace("torch.", "")
-        emit({"phase": "kernel_main_path", **row})
-        ctx.kernel_rows.append(row)
+    ctx.kernel_rows = check_path("main_path", ctx.launches, inputs)
     return {"parity": sh["parity"], "launches": ctx.launches,
             "main_path_exact": PORTED,
             "sharded_time_split": time_split(sh["wall_s"], seconds,
@@ -666,8 +712,8 @@ def phase_serving_smoke(ctx: Context) -> dict:
 def sharded_batching(arrivals, sizes, vec, vec_trail, label: str) -> dict:
     """The ``slot_vec`` engine again with ``kv="sharded"`` (two shards):
     its counters and logs must equal ``kv="vec"``'s, every kernel must
-    launch, and each kernel is held against its plain version on the
-    largest inputs this run gave it."""
+    launch, and each kernel is held against its plain version on every
+    shape this run gave it."""
     (sharded, trail), launches, inputs, seconds = traced(
         run_batching, arrivals, sizes, "slot_vec", kv="sharded")
     same = {k: v for k, v in sharded.items() if k != "wall_s"} == \
@@ -675,14 +721,7 @@ def sharded_batching(arrivals, sizes, vec, vec_trail, label: str) -> dict:
     if not same or trail != vec_trail:
         raise AssertionError(f"{label}: kv='sharded' slot machine diverged "
                              f"from kv='vec'")
-    if sorted(inputs) != sorted(PORTED) or min(launches.values()) <= 0:
-        raise AssertionError(f"{label}: kv='sharded' slot machine skipped a "
-                             f"kernel: {launches}")
-    rows = []
-    for name in PORTED:
-        row = check_and_time(name, inputs[name])
-        emit({"phase": f"kernel_{label}", **row})
-        rows.append(row)
+    rows = check_path(label, launches, inputs)
     return {"sharded_wall_s": sharded["wall_s"],
             "sharded_launches": launches,
             "sharded_time_split": time_split(sharded["wall_s"], seconds,
@@ -723,21 +762,28 @@ def phase_batching_full(ctx: Context) -> dict:
                                "batching_full")}
 
 
-def phase_launcher(ctx: Context) -> dict:
-    from repro_torch import kernels
+def run_launcher():
     from repro_torch.launch import serve
 
-    kernels.reset_launch_counts()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(io.StringIO()):
         out = serve.main(["--null-model", "--kv", "sharded", "--max-batch",
                           "128", "--requests", "256", "--device", DEVICE])
     torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    if out["completed"] != 256 or min(launches.values()) <= 0:
+    return out
+
+
+def phase_launcher(ctx: Context) -> dict:
+    """The user's entry point: all 256 requests complete, every kernel
+    launches, and each is held against its plain version on every shape
+    the run gave it."""
+    out, launches, inputs, seconds = traced(run_launcher)
+    if out["completed"] != 256:
         raise AssertionError(f"launcher run: {out['completed']} of 256 "
-                             f"requests, launches {launches}")
-    return {"launches": launches, **out}
+                             f"requests")
+    rows = check_path("launcher", launches, inputs, timed=False)
+    return {"launches": launches, "launcher_seconds": seconds,
+            "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
+            **out}
 
 
 PHASES = [
@@ -761,15 +807,12 @@ def report(ctx: Context) -> None:
     ported = {n: (src, repl) for n, repl, src in TPU_KERNELS if src}
     rows = []
     for r in ctx.kernel_rows:
-        graph = r["graph_ms"] is not None
         rows.append({
             "name": r["name"], "route": "cuda",
             "source": ported[r["name"]][0], "replaces": ported[r["name"]][1],
             "launches": ctx.launches[r["name"]],
             "max_abs_err": r["max_abs_err"],
-            "ms": r["graph_ms"] if graph else r["wrapper_ms"],
-            "ms_by": "cuda_graph_replay" if graph else "wrapper_loop",
-            "graph_ms": r["graph_ms"], "wrapper_ms": r["wrapper_ms"],
+            "ms": r["graph_ms"], "graph_ms": r["graph_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(ctx.smi or f"{ctx.kind}, power.limit not measured (nvidia-smi "

@@ -8,12 +8,10 @@ builds anew and an unchanged one is reused.  ``build_all`` starts one
 ``nvcc`` per source at once; the kernels' first launch otherwise builds
 its own library.  Nothing here runs at import time.
 
-The build directory is ``build/`` beside this module (gitignored); where
-that cannot be written or is mounted ``noexec`` (a shared library there
-could not be loaded), it is a directory under the process's temporary
-directory.  ``nvcc`` keeps its own temporary files inside the build
-directory.  Every failure to find ``nvcc``, to make the directory or to
-compile raises, naming what was tried.
+The build directory is ``build/`` beside this module (gitignored).
+``nvcc`` keeps its own temporary files inside it.  Every failure to find
+``nvcc``, to make or write the directory or to compile raises, naming
+what was tried.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 binding raises on a non-zero code.  ``CudaKernel.launches`` counts the
@@ -27,19 +25,20 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all", "build_dir",
-           "launch_counts", "nvcc_path", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all",
+           "build_dir", "launch_counts", "nvcc_path", "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: where the kernels' libraries are built (gitignored)
+BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 #: every kernel of the port, by name (filled as the kernel modules load)
 KERNELS: Dict[str, "CudaKernel"] = {}
@@ -72,32 +71,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found; tried " + "; ".join(tried))
 
 
-def _usable_dir(path: Path) -> Optional[str]:
-    """``None`` when ``path`` exists (made here if need be), is writable,
-    and may hold a loadable shared library; else why not."""
+def build_dir() -> Path:
+    """``BUILD_DIR``, made here if need be.  Raises ``RuntimeError``
+    naming it when it cannot be created, cannot be written, or is on a
+    ``noexec`` mount (a library there could not be loaded)."""
+    path = BUILD_DIR
     try:
         path.mkdir(parents=True, exist_ok=True)
     except OSError as e:
-        return f"cannot be created ({e})"
-    if not os.access(path, os.W_OK | os.X_OK):
-        return "is not writable"
-    if os.statvfs(path).f_flag & os.ST_NOEXEC:
-        return "is on a noexec mount (a library there cannot be loaded)"
-    return None
-
-
-def build_dir() -> Path:
-    """The directory the kernels' libraries are built into (made here if
-    need be); raises ``RuntimeError`` naming each directory tried."""
-    why = []
-    for cand in (Path(__file__).resolve().parent / "build",
-                 Path(tempfile.gettempdir())
-                 / f"repro_torch-kernels-{os.getuid()}"):
-        fault = _usable_dir(cand)
-        if fault is None:
-            return cand
-        why.append(f"{cand} {fault}")
-    raise RuntimeError("no usable kernel build directory: " + "; ".join(why))
+        fault = f"cannot be created ({e})"
+    else:
+        if not os.access(path, os.W_OK | os.X_OK):
+            fault = "is not writable"
+        elif os.statvfs(path).f_flag & os.ST_NOEXEC:
+            fault = "is on a noexec mount (a library there cannot be loaded)"
+        else:
+            return path
+    raise RuntimeError(f"kernel build directory {path} {fault}")
 
 
 class _Build(NamedTuple):

@@ -217,3 +217,74 @@ def test_chip_smoke_bench_phases_on_cpu(monkeypatch):
     drifted = {k: dict(v) for k, v in out.items() if isinstance(v, dict)}
     drifted["hbm_hit_rate"]["pfcs_vec"] = 0.25
     assert chip_smoke.bench_failures("BENCH_case_serving.json", drifted)
+
+
+def _captured_inputs():
+    """Inputs of two shapes for gcd and one for each other kernel, keyed
+    as ``chip_smoke.Capture`` keys them."""
+    c = torch.tensor([0, 1, 6, 35, 77, 30], dtype=torch.int64)
+    p = torch.tensor([2, 3, 5, 7, 0], dtype=torch.int64)
+    a = torch.tensor([12, 18, 0, 7, 9, 100, 81, 64], dtype=torch.int64)
+    b = torch.tensor([8, 27, 5, 0, 6, 75, 54, 48], dtype=torch.int64)
+
+    def key(*args):
+        return ("int64", tuple(tuple(t.shape) for t in args))
+
+    return {"divisibility_mask": {key(c, p): (c, p)},
+            "factorize_squarefree": {key(c, p): (c, p)},
+            "gcd": {key(a, b): (a, b), key(a[:4], b[:4]): (a[:4], b[:4])}}
+
+
+def test_chip_smoke_checks_every_shape_a_path_gave(monkeypatch):
+    """``check_path`` holds each kernel against its plain version at every
+    captured shape, not only the largest: a gcd that is wrong only at the
+    smaller shape fails, and a kernel the path never launched fails."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    launches = {name: 2 for name in chip_smoke.PORTED}
+    rows = chip_smoke.check_path("t", launches, _captured_inputs(),
+                                 timed=False)
+    assert {r["name"]: r["shapes_checked"] for r in rows} == {
+        "divisibility_mask": 1, "factorize_squarefree": 1, "gcd": 2}
+    assert all(r["also_exact_as"] == ["int32"] for r in rows)
+
+    pairs = {name: chip_smoke.kernel_pair(name) for name in launches}
+
+    def wrong_when_small(x, y):
+        g = ref.gcd_ref(x, y)
+        return g + 1 if x.numel() < 8 else g
+
+    pairs["gcd"] = (wrong_when_small, ref.gcd_ref)
+    monkeypatch.setattr(chip_smoke, "kernel_pair", pairs.__getitem__)
+    with pytest.raises(AssertionError, match="gcd torch.int64: kernel != plain"):
+        chip_smoke.check_path("t", launches, _captured_inputs(),
+                              timed=False)
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.check_path("t", dict(launches, gcd=0),
+                              _captured_inputs(), timed=False)
+
+
+def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
+    """The measured upper bound on the card's busy share is the kernel
+    calls' seconds over wall only while every launch fell inside those
+    calls; the graph-replay figure is an estimate, null without a graph
+    time."""
+    chip_smoke = _chip_smoke()
+    launches = {name: 3 for name in chip_smoke.PORTED}
+    rows = [{"name": name, "graph_ms": 2.0} for name in chip_smoke.PORTED]
+    seconds = {"refresh_s": 4.0, "kernel_calls_s": 1.0,
+               "kernel_calls_launches": 9}
+    split = chip_smoke.time_split(10.0, seconds, launches, rows)
+    assert split["device_busy_upper_share"] == 0.1
+    assert split["launches_outside_kernel_calls"] == 0
+    assert split["device_busy_graph_est_s"] == pytest.approx(0.018)
+    assert split["refresh_host_python_s"] == 3.0
+    split = chip_smoke.time_split(
+        10.0, dict(seconds, kernel_calls_launches=8), launches,
+        rows[:2] + [{"name": "gcd", "graph_ms": None}])
+    assert split["device_busy_upper_share"] is None
+    assert split["launches_outside_kernel_calls"] == 1
+    assert split["device_busy_graph_est_s"] is None

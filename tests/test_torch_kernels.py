@@ -294,3 +294,21 @@ def test_nvcc_lookup_names_every_place_tried(monkeypatch):
                   "CUDA_PATH (unset)", "cpp_extension.CUDA_HOME (unset)",
                   "/usr/local/cuda/bin/nvcc"):
         assert place in msg, place
+
+
+def test_build_dir_names_itself_when_it_cannot_be_made(tmp_path,
+                                                       monkeypatch):
+    """One build directory: when it cannot be created the error names it
+    (no second place is tried)."""
+    from repro_torch.kernels import cuda
+
+    blocker = tmp_path / "not-a-dir"
+    blocker.write_text("")
+    monkeypatch.setattr(cuda, "BUILD_DIR", blocker / "build")
+    with pytest.raises(RuntimeError) as err:
+        cuda.build_dir()
+    assert str(blocker / "build") in str(err.value)
+    assert "cannot be created" in str(err.value)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    assert cuda.build_dir() == tmp_path / "build"
+    assert (tmp_path / "build").is_dir()
