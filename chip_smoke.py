@@ -4,21 +4,25 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It puts ``<root>/src`` on ``sys.path`` itself, builds the port's CUDA
+It puts ``<root>/src`` on ``sys.path`` itself, builds the port's six CUDA
 kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
-source, started together), and drives the port's serving path on the card
-in phases, each printing one JSON line with its seconds (the sharded runs also
-report where their wall time went, ``sharded_time_split``):
+source, started together), and drives the port's serving path and its
+wide (multi-limb) path on the card in phases, each printing one JSON line
+with its seconds (the sharded runs also report where their wall time
+went, ``sharded_time_split``):
 
   device         the card, the torch and CUDA versions, the interpreter,
                  the ``nvcc`` found, the build directory, and
                  ``nvidia-smi``'s name and power limit (``null`` with the
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
-  build          the three kernels, with ``-Xptxas -v``'s register,
+  build          the six kernels, with ``-Xptxas -v``'s register,
                  shared-memory and spill lines;
   kernel_check   each kernel against its plain PyTorch version on the card
-                 at registry-refresh sizes, int32 and int64 (exact);
+                 at registry-refresh sizes: the flat kernels in int32 and
+                 int64, the limb kernels at 2, 3, 8 and 32 limbs with zero,
+                 value-1 and non-squarefree rows, pad primes and ragged
+                 shapes (exact);
   serving_full   ``case_serving``'s full configuration through
                  ``ServingEngine`` with ``kv="vec"``, ``"scalar"`` and
                  ``"sharded"`` (two shards): equal parity counters, every
@@ -34,11 +38,29 @@ report where their wall time went, ``sharded_time_split``):
                  ``kv="sharded"`` against ``kv="vec"``;
   launcher       ``repro_torch.launch.serve --null-model --kv sharded``,
                  each kernel held against its plain version on the
-                 inputs that run gave it.
+                 inputs that run gave it;
+  scale          ``case_scale`` at its published size (1M elements, 10,000
+                 chains 100 deep, 1024-bit chunks: 32 limbs) through
+                 ``repro_torch.cases``, against every deterministic key of
+                 ``BENCH_case_scale.json``, each limb kernel held against
+                 its plain version on the inputs the run gave it;
+  scale_full_scan  the limb mask kernel over the whole registry of the
+                 scale phase (991,832 composites x 32 limbs) against its
+                 359 query primes: equal to its plain version, every hit
+                 re-checked with Python ints, the hits of 8 primes equal to
+                 an exact host scan, no negative-control hit;
+  serving_wide   ``case_serving``'s full configuration at ``max_bits`` 128
+                 and 1024 with ``kv="vec"``, ``"scalar"`` and ``"sharded"``:
+                 counters, tier and prefetch logs equal to the narrow
+                 run's, each kernel the sharded runs launched held against
+                 its plain version; and ``case_batching``'s smoke trace with
+                 ``kv="sharded"``, ``max_bits`` 128, against ``kv="vec"``;
+  launcher_wide  the launcher with ``--max-bits 1024``.
 
 Then the table of the reference's six Pallas kernels, the card's name and
-power limit, the ``kernels`` line (launches on the ``case_serving`` sharded
-run, error, times and bound at that run's shapes) and, last,
+power limit, the ``kernels`` line (for the flat kernels: launches on the
+``case_serving`` sharded run and times at that run's shapes; for the limb
+kernels: the same from the ``scale`` run) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Every path that launches the kernels holds each kernel against its plain
@@ -94,11 +116,28 @@ TPU_KERNELS = [
      "src/repro_torch/kernels/csrc/factorize.cu"),
     ("gcd", "src/repro/kernels/gcd.py:45",
      "src/repro_torch/kernels/csrc/gcd.cu"),
-    ("divisibility_mask_limbs", "src/repro/kernels/factorize.py:99", None),
-    ("factorize_limbs", "src/repro/kernels/factorize.py:155", None),
-    ("gcd_limbs", "src/repro/kernels/gcd.py:143", None),
+    ("divisibility_mask_limbs", "src/repro/kernels/factorize.py:99",
+     "src/repro_torch/kernels/csrc/divmask_limbs.cu"),
+    ("factorize_limbs", "src/repro/kernels/factorize.py:155",
+     "src/repro_torch/kernels/csrc/factorize_limbs.cu"),
+    ("gcd_limbs", "src/repro/kernels/gcd.py:143",
+     "src/repro_torch/kernels/csrc/gcd_limbs.cu"),
 ]
 PORTED = [name for name, _, src in TPU_KERNELS if src]
+#: the kernels every narrow sharded path launches
+FLAT = ["divisibility_mask", "factorize_squarefree", "gcd"]
+#: the multi-limb kernels of wide registries
+LIMB = ["divisibility_mask_limbs", "factorize_limbs", "gcd_limbs"]
+
+#: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
+LIMB_WIDTHS = (2, 3, 8, 32)
+#: ``case_scale``'s published size (``benchmarks/cases.py``)
+SCALE_SIZE = dict(n_chains=10_000, depth=100, n_verify_chains=24)
+#: query primes whose full-registry hits are held against an exact host
+#: scan in ``scale_full_scan`` (each scan walks the whole registry)
+FULL_SCAN_EXACT_PRIMES = 8
+#: rows per chunk of the plain version in ``scale_full_scan``
+FULL_SCAN_CHUNK = 1 << 16
 
 
 def emit(obj) -> None:
@@ -270,6 +309,57 @@ def synthetic_inputs(dtype, rng):
             "gcd": (t(a), t(b))}
 
 
+def synthetic_limb_inputs(n_limbs: int, rng):
+    """Limb-kernel inputs at registry-refresh sizes with ragged edges:
+    mask 4099 x 1030, factorize 2051 x 1030, gcd 16,411 pairs against a
+    1030-entry pool.  Composites are products of distinct pool primes that
+    fit ``32 * n_limbs`` bits, some times a squared prime, random limb
+    rows, zero rows and value-1 rows; the pool holds distinct primes below
+    2**31, one of them twice, and the pads 0 and 1; gcd pairs share
+    primes, and include a zero pair and a pair sharing a prime the pool
+    lacks."""
+    from repro_torch.core.composite import pack_limbs
+
+    bits = 32 * n_limbs
+    primes = _primes_upto(1 << 21)
+    pool = np.concatenate([rng.choice(primes[primes > 1000], size=1020,
+                                      replace=False),
+                           [2, 3, 5, 2_147_483_629, 0, 1, 0, 1, 0, 7]])
+    pool[-1] = pool[0]
+    pool = rng.permutation(pool)
+    live = pool[pool > 1]
+
+    def composites(n):
+        out = []
+        for i in range(n):
+            if i % 5 == 4:
+                out.append(int.from_bytes(rng.bytes(4 * n_limbs), "little"))
+                continue
+            v = 1
+            for q in rng.choice(live, size=int(rng.integers(1, 60)),
+                                replace=False):
+                if (v * int(q)).bit_length() < bits:
+                    v *= int(q)
+            if i % 5 == 3 and (v * 9).bit_length() < bits:
+                v *= 9
+            out.append(v)
+        out[:4] = [0, 1, 0, 45]
+        return pack_limbs(out, n_limbs)
+
+    a = composites(16_411)
+    b = np.roll(a, 7, axis=0)
+    b[0] = 0                                  # a zero pair (a[0] == 0)
+    a[5], b[5] = pack_limbs([2_147_483_647 * 3, 2_147_483_647 * 5],
+                            n_limbs)          # common prime not in the pool
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(DEVICE)
+
+    return {"divisibility_mask_limbs": (t(composites(4099)), t(pool)),
+            "factorize_limbs": (t(composites(2051)), t(pool)),
+            "gcd_limbs": (t(a), t(b), t(pool))}
+
+
 def kernel_pair(name: str):
     """``(kernel wrapper, plain version)`` of one ported kernel."""
     from repro_torch.kernels import factorize, gcd, ref
@@ -278,7 +368,12 @@ def kernel_pair(name: str):
                                   ref.divisibility_mask_ref),
             "factorize_squarefree": (factorize.factorize_squarefree,
                                      ref.factorize_squarefree_ref),
-            "gcd": (gcd.gcd, ref.gcd_ref)}[name]
+            "gcd": (gcd.gcd, ref.gcd_ref),
+            "divisibility_mask_limbs": (factorize.divisibility_mask_limbs,
+                                        ref.divisibility_mask_limbs_ref),
+            "factorize_limbs": (factorize.factorize_limbs,
+                                ref.factorize_limbs_ref),
+            "gcd_limbs": (gcd.gcd_limbs, ref.gcd_limbs_ref)}[name]
 
 
 def check_exact(name: str, args):
@@ -298,12 +393,39 @@ def check_exact(name: str, args):
 
 def other_dtype(args):
     """``args`` in the other of int32 / int64 where every value fits it,
-    else ``None``."""
+    else ``None`` (always for limb inputs, which are int64 only)."""
+    if args[0].dim() != 1:
+        return None
     if args[0].dtype == torch.int32:
         return tuple(a.to(torch.int64) for a in args)
     if max(int(a.max()) for a in args if a.numel()) <= 2**31 - 1:
         return tuple(a.to(torch.int32) for a in args)
     return None
+
+
+def limb_work(name: str, args, outs) -> tuple:
+    """``(bytes, operations)`` a limb kernel must move and do on these
+    inputs: each input read once, each output written once; one
+    operation per Horner or short-division step on a live prime (> 1),
+    counting only the steps these inputs need (gcd tests b only where a
+    is divisible, and multiplies only where both are)."""
+    from repro_torch.kernels import ref
+
+    limbs, pool = args[0], args[-1]
+    n, nl = limbs.shape
+    live = int((pool > 1).sum())
+    words = 8 * (n * nl)
+    if name == "divisibility_mask_limbs":
+        return words + 8 * pool.numel() + outs[0].numel(), n * live * nl
+    if name == "factorize_limbs":
+        walk = (limbs != 0).any(dim=1)
+        hits = int(outs[0][walk].sum())
+        return (2 * words + 8 * pool.numel() + outs[0].numel(),
+                (n * live + hits) * nl)
+    in_a = ref.divisibility_mask_limbs_ref(args[0], pool)
+    common = in_a & ref.divisibility_mask_limbs_ref(args[1], pool)
+    return (3 * words + 8 * pool.numel(),
+            (n * live + int(in_a.sum()) + int(common.sum())) * nl)
 
 
 def check_and_time(name: str, args) -> dict:
@@ -313,7 +435,10 @@ def check_and_time(name: str, args) -> dict:
     kern, plain = kernel_pair(name)
     err, outs_k = check_exact(name, args)
     elem = args[0].element_size()
-    if name == "gcd":
+    if name in LIMB:
+        n_bytes, n_ops = limb_work(name, args, outs_k)
+        shape = [list(a.shape) for a in args]
+    elif name == "gcd":
         n = args[0].numel()
         n_bytes = 3 * n * elem
         n_ops = euclid_steps(*args)
@@ -382,7 +507,8 @@ class Timers:
     run: the whole table rebuild (``refresh_s``) and, within it, the calls
     that upload to the card, launch the kernels and read the results back
     (``kernel_calls_s``: the per-shard scan with its mask and gcd
-    kernels, and the squarefree decode; neither calls the other), and the
+    kernels, flat or limb, and the squarefree decode; neither calls the
+    other), and the
     kernel launches made inside those calls (``kernel_calls_launches``).
     What remains of the refresh is host Python; what remains of the run
     is the tick loop."""
@@ -399,6 +525,7 @@ class Timers:
         self._undo = []
         self._wrap(ShardedPagedKVCache, "refresh_tables", "refresh_s")
         self._wrap(shard, "_scan_sharded", "kernel_calls_s")
+        self._wrap(shard, "_scan_sharded_limbs", "kernel_calls_s")
         self._wrap(ops, "factorize_batch_exact", "kernel_calls_s")
 
     def _wrap(self, owner, name, key):
@@ -440,17 +567,19 @@ def traced(run, *args, **kw):
 
 
 def check_path(label: str, launches: dict, inputs: dict,
-               timed: bool = True) -> list:
-    """Every kernel of a path launched, and held against its plain version
-    on every distinct shape and dtype the path gave it (and in the other
-    of int32 / int64 where the values fit); with ``timed``, also measured
-    at the largest.  Emits one line per kernel and returns the lines."""
-    if sorted(inputs) != sorted(PORTED) or min(
-            launches[n] for n in PORTED) <= 0:
+               timed: bool = True, required=FLAT) -> list:
+    """Every kernel in ``required`` launched on the path, and every kernel
+    the path launched held against its plain version on every distinct
+    shape and dtype the path gave it (and in the other of int32 / int64
+    where the values fit); with ``timed``, also measured at the largest.
+    Emits one line per kernel and returns the lines."""
+    launched = [n for n in PORTED if launches.get(n, 0) > 0]
+    if (any(n not in launched or n not in inputs for n in required)
+            or sorted(inputs) != sorted(launched)):
         raise AssertionError(f"{label}: a kernel was not launched on the "
-                             f"path: {launches}")
+                             f"path, or launched uncaptured: {launches}")
     rows = []
-    for name in PORTED:
+    for name in launched:
         seen = inputs[name]
         top = max(seen, key=lambda k: sum(a.numel() for a in seen[k]))
         also = set()
@@ -480,7 +609,7 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
     graph-replay time of the run's largest inputs of its kernel (replay
     hides the per-launch overhead; smaller shapes cost less); null when a
     graph capture failed."""
-    total = sum(launches[n] for n in PORTED)
+    total = sum(launches[r["name"]] for r in rows)
     inside = seconds["kernel_calls_launches"]
     graph = [r["graph_ms"] for r in rows]
     est = (None if None in graph else
@@ -501,8 +630,11 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
 # serving                                                                     #
 # --------------------------------------------------------------------------- #
 
-def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2):
-    """``benchmarks/cases.py::case_serving``'s engine run, on the card."""
+def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2,
+                max_bits: int = 62):
+    """``benchmarks/cases.py::case_serving``'s engine run, on the card:
+    ``(report, trail)``, the trail holding the parity counters, every
+    touch's tier and the prefetch log."""
     from repro_torch.serving.engine import ServingEngine
 
     if smoke:
@@ -515,7 +647,15 @@ def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2):
     eng = ServingEngine(None, None, max_batch=max_batch, page_size=16,
                         hbm_pages=hbm, kv=kv, prefetch_budget=budget,
                         reread_window=window, shards=n_shards,
-                        device=DEVICE)
+                        max_bits=max_bits, device=DEVICE)
+    tiers = []
+
+    def record(items, touch=eng.pages.touch_batch):
+        out = touch(items)
+        tiers.extend(out)
+        return out
+
+    eng.pages.touch_batch = record
     groups = [list(rng.integers(0, 30_000, size=shared_tok))
               for _ in range(max(1, n_req // 8))]
     for r in range(n_req):
@@ -527,7 +667,8 @@ def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.pages.stats
-    out = {"kv": kv, "completed": len(done), "wall_s": wall,
+    out = {"kv": kv, "max_bits": max_bits, "completed": len(done),
+           "wall_s": wall,
            "tok_per_s": sum(len(r.generated) for r in done) / wall,
            "peak_concurrency": eng.peak_live,
            "hbm_hit_rate": st.hbm_hit_rate,
@@ -543,7 +684,9 @@ def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2):
                    gcd_pairs=scan.gcd_pairs,
                    shard_agg_parity=list(
                        eng.pages.aggregate_shard_stats().parity_tuple()))
-    return out
+    trail = {"parity": st.parity_tuple(), "tiers": tiers,
+             "prefetch_log": list(eng.pages.prefetch_log)}
+    return out, trail
 
 
 def batching_trace(smoke: bool):
@@ -570,7 +713,8 @@ def batching_trace(smoke: bool):
                           prefill_tokens=prefill_tok)
 
 
-def run_batching(arrivals, sizes, config: str, kv: str = "vec"):
+def run_batching(arrivals, sizes, config: str, kv: str = "vec",
+                 max_bits: int = 62):
     """One ``case_batching`` engine on the card: ``config`` is a key of
     ``BENCH_case_batching.json``."""
     from repro_torch.serving.slots import SlotMachine, SlotOracle
@@ -581,8 +725,8 @@ def run_batching(arrivals, sizes, config: str, kv: str = "vec"):
         "lockstep": (SlotMachine, "lockstep", 4, None),
         "lru": (SlotMachine, "continuous", 0, 6)}[config]
     eng = cls(page_size=16, kv=kv, prefetch_budget=budget, reread_window=2,
-              policy=policy, preempt_wait=wait, shards=2, device=DEVICE,
-              **sizes)
+              policy=policy, preempt_wait=wait, shards=2, max_bits=max_bits,
+              device=DEVICE, **sizes)
     for t, prompt, new in arrivals:
         eng.submit(prompt, max_new_tokens=new, arrival=t)
     torch.cuda.synchronize()
@@ -628,6 +772,11 @@ class Context:
         self.smi = None
         self.launches = None
         self.kernel_rows = []
+        self.serving_trail = None     # narrow case_serving full, kv="vec"
+        self.batching = None          # the smoke trace and its vec run
+        self.universe = None          # case_scale's registry
+        self.scale_launches = None
+        self.scale_rows = []
 
 
 def phase_device(ctx: Context) -> dict:
@@ -666,13 +815,25 @@ def phase_kernel_check(ctx: Context) -> dict:
             emit({"phase": "kernel_check", **row})
             checked.append(f"{name}:{row['dtype']}")
         del inputs
+    for n_limbs in LIMB_WIDTHS:
+        inputs = synthetic_limb_inputs(n_limbs, rng)
+        for name, args in inputs.items():
+            if n_limbs == LIMB_WIDTHS[-1]:       # timed at the widest
+                row = check_and_time(name, args)
+                emit({"phase": "kernel_check", **row})
+            else:
+                check_exact(name, args)
+            checked.append(f"{name}:{n_limbs} limbs")
+        del inputs
     return {"exact": checked}
 
 
 def phase_serving_full(ctx: Context) -> dict:
-    full = {"vec": run_serving("vec", 4, smoke=False),
-            "scalar": run_serving("scalar", 4, smoke=False)}
-    full["sharded"], ctx.launches, inputs, seconds = traced(
+    (vec, ctx.serving_trail), (scalar, _) = (
+        run_serving("vec", 4, smoke=False),
+        run_serving("scalar", 4, smoke=False))
+    full = {"vec": vec, "scalar": scalar}
+    (full["sharded"], _), ctx.launches, inputs, seconds = traced(
         run_serving, "sharded", 4, smoke=False)
     sh = full["sharded"]
     emit({"phase": "serving_full_runs", "launches": ctx.launches, **full})
@@ -696,10 +857,10 @@ def phase_serving_full(ctx: Context) -> dict:
 
 
 def phase_serving_smoke(ctx: Context) -> dict:
-    runs = {"pfcs_vec": run_serving("vec", 4, smoke=True),
-            "pfcs_scalar": run_serving("scalar", 4, smoke=True),
-            "lru": run_serving("vec", 0, smoke=True),
-            "pfcs_shard2": run_serving("sharded", 4, smoke=True)}
+    runs = {"pfcs_vec": run_serving("vec", 4, smoke=True)[0],
+            "pfcs_scalar": run_serving("scalar", 4, smoke=True)[0],
+            "lru": run_serving("vec", 0, smoke=True)[0],
+            "pfcs_shard2": run_serving("sharded", 4, smoke=True)[0]}
     fresh = {key: {cfg: r[key] for cfg, r in runs.items()}
              for key in ("hbm_hit_rate", "prefetch_hit_rate",
                          "registry_scans", "tok_per_s")}
@@ -709,19 +870,21 @@ def phase_serving_smoke(ctx: Context) -> dict:
     return {"matches": "BENCH_case_serving.json", **fresh}
 
 
-def sharded_batching(arrivals, sizes, vec, vec_trail, label: str) -> dict:
-    """The ``slot_vec`` engine again with ``kv="sharded"`` (two shards):
-    its counters and logs must equal ``kv="vec"``'s, every kernel must
-    launch, and each kernel is held against its plain version on every
-    shape this run gave it."""
+def sharded_batching(arrivals, sizes, vec, vec_trail, label: str,
+                     max_bits: int = 62, required=FLAT) -> dict:
+    """The ``slot_vec`` engine again with ``kv="sharded"`` (two shards) at
+    ``max_bits``: its counters and logs must equal (narrow) ``kv="vec"``'s,
+    every kernel in ``required`` must launch, and each kernel it launched
+    is held against its plain version on every shape this run gave it."""
     (sharded, trail), launches, inputs, seconds = traced(
-        run_batching, arrivals, sizes, "slot_vec", kv="sharded")
+        run_batching, arrivals, sizes, "slot_vec", kv="sharded",
+        max_bits=max_bits)
     same = {k: v for k, v in sharded.items() if k != "wall_s"} == \
         {k: v for k, v in vec.items() if k != "wall_s"}
     if not same or trail != vec_trail:
         raise AssertionError(f"{label}: kv='sharded' slot machine diverged "
                              f"from kv='vec'")
-    rows = check_path(label, launches, inputs)
+    rows = check_path(label, launches, inputs, required=required)
     return {"sharded_wall_s": sharded["wall_s"],
             "sharded_launches": launches,
             "sharded_time_split": time_split(sharded["wall_s"], seconds,
@@ -739,6 +902,7 @@ def phase_batching(ctx: Context) -> dict:
     if trails["slot_vec"] != trails["slot_oracle"]:
         raise AssertionError("slot machine diverged from the slot oracle")
     vec = fresh["slot_vec"]
+    ctx.batching = (arrivals, sizes, vec, trails["slot_vec"])
     return {"matches": "BENCH_case_batching.json",
             "requests": len(arrivals), **sizes,
             "peak_in_flight": vec["peak_in_flight"],
@@ -762,28 +926,172 @@ def phase_batching_full(ctx: Context) -> dict:
                                "batching_full")}
 
 
-def run_launcher():
+def run_launcher(*extra: str):
     from repro_torch.launch import serve
 
     with contextlib.redirect_stdout(io.StringIO()):
         out = serve.main(["--null-model", "--kv", "sharded", "--max-batch",
-                          "128", "--requests", "256", "--device", DEVICE])
+                          "128", "--requests", "256", "--device", DEVICE,
+                          *extra])
     torch.cuda.synchronize()
     return out
 
 
-def phase_launcher(ctx: Context) -> dict:
-    """The user's entry point: all 256 requests complete, every kernel
-    launches, and each is held against its plain version on every shape
-    the run gave it."""
-    out, launches, inputs, seconds = traced(run_launcher)
+def phase_launcher(ctx: Context, extra=(), label: str = "launcher",
+                   required=FLAT) -> dict:
+    """The user's entry point: all 256 requests complete, every kernel in
+    ``required`` launches, and each kernel launched is held against its
+    plain version on every shape the run gave it."""
+    out, launches, inputs, seconds = traced(run_launcher, *extra)
     if out["completed"] != 256:
-        raise AssertionError(f"launcher run: {out['completed']} of 256 "
+        raise AssertionError(f"{label} run: {out['completed']} of 256 "
                              f"requests")
-    rows = check_path("launcher", launches, inputs, timed=False)
+    rows = check_path(label, launches, inputs, timed=False,
+                      required=required)
     return {"launches": launches, "launcher_seconds": seconds,
             "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
             **out}
+
+
+# --------------------------------------------------------------------------- #
+# the wide (multi-limb) path                                                  #
+# --------------------------------------------------------------------------- #
+
+#: the kernels every wide sharded serving path launches: the limb scan and
+#: the limb gcd exchange (the decode of its gcds, products of two primes,
+#: takes the flat factorization)
+WIDE_SHARDED = ["divisibility_mask_limbs", "gcd_limbs",
+                "factorize_squarefree"]
+
+
+def phase_scale(ctx: Context) -> dict:
+    """``case_scale`` at its published size: the registry is built on the
+    host, the verification runs the three limb kernels on the card (the
+    launches of the ``kernels`` line), and every deterministic key of
+    ``BENCH_case_scale.json`` is reproduced."""
+    from repro_torch.cases import build_scale_universe, verify_scale
+
+    t0 = time.perf_counter()
+    ctx.universe = build_scale_universe(**SCALE_SIZE)
+    build_s = time.perf_counter() - t0
+    out, ctx.scale_launches, inputs, _ = traced(verify_scale, ctx.universe,
+                                                device=DEVICE)
+    failures = bench_failures("BENCH_case_scale.json", out)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    ctx.scale_rows = check_path("scale", ctx.scale_launches, inputs,
+                                required=LIMB)
+    return {"matches": "BENCH_case_scale.json", "build_s": build_s,
+            "launches": ctx.scale_launches, **out}
+
+
+def phase_scale_full_scan(ctx: Context) -> dict:
+    """The limb mask kernel over the whole ``case_scale`` registry against
+    its query primes: equal to its plain version (run in row chunks), no
+    false positive (each hit re-checked with Python ints), no miss for
+    ``FULL_SCAN_EXACT_PRIMES`` primes (their hits equal an exact host
+    scan of every composite), and no hit for a negative control."""
+    from repro_torch import kernels
+    from repro_torch.cases import NEGATIVE_PRIMES
+    from repro_torch.kernels import factorize, ref
+
+    u = ctx.universe
+    t0 = time.perf_counter()
+    limbs = u.registry.limbs_array()
+    comps = u.registry.composites_list()
+    pack_s = time.perf_counter() - t0
+    lt = torch.from_numpy(limbs).to(DEVICE)
+    qt = torch.tensor(u.queries, dtype=torch.int64, device=DEVICE)
+    kernels.reset_launch_counts()
+    mask = factorize.divisibility_mask_limbs(lt, qt)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches["divisibility_mask_limbs"] != 1:
+        raise AssertionError(f"full scan did not launch the kernel once: "
+                             f"{launches}")
+    n, nl = lt.shape
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for lo in range(0, n, FULL_SCAN_CHUNK):
+        hi = min(n, lo + FULL_SCAN_CHUNK)
+        if not torch.equal(mask[lo:hi],
+                           ref.divisibility_mask_limbs_ref(lt[lo:hi], qt)):
+            raise AssertionError(f"full scan: kernel != plain in rows "
+                                 f"{lo}:{hi}")
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    rows, cols = (x.cpu().numpy() for x in torch.nonzero(mask,
+                                                         as_tuple=True))
+    false_pos = sum(1 for i, j in zip(rows, cols)
+                    if comps[i] % u.queries[j] != 0)
+    if false_pos:
+        raise AssertionError(f"full scan: {false_pos} false positives")
+    n_neg = len(NEGATIVE_PRIMES)
+    if bool(mask[:, -n_neg:].any()):
+        raise AssertionError("full scan: a negative-control prime hit")
+    n_pos = len(u.queries) - n_neg
+    exact = sorted({int(j) for j in np.linspace(0, n_pos - 1,
+                                                FULL_SCAN_EXACT_PRIMES)})
+    t0 = time.perf_counter()
+    for j in exact:
+        q = u.queries[j]
+        want = [i for i, c in enumerate(comps) if c % q == 0]
+        if rows[cols == j].tolist() != want:
+            raise AssertionError(f"full scan: hits of prime {q} differ "
+                                 f"from the exact host scan")
+    host_scan_s = time.perf_counter() - t0
+    live = int((qt > 1).sum())
+    b_ms, b_by = bound_ms(limbs.nbytes + 8 * qt.numel() + mask.numel(),
+                          n * live * nl)
+    return {"shape": [[n, nl], [qt.numel()]], "launches": launches,
+            "max_abs_err": 0, "hits": int(rows.size),
+            "false_positives": false_pos, "exact_primes": len(exact),
+            "exact_host_scan_s": host_scan_s, "pack_s": pack_s,
+            "ms": loop_ms(lambda: factorize.divisibility_mask_limbs(lt, qt),
+                          max_reps=5),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_serving_wide(ctx: Context) -> dict:
+    """``case_serving``'s full configuration at ``max_bits`` 128 and 1024
+    with every cache backend: parity counters, tiers and prefetch log
+    equal to the narrow ``kv="vec"`` run's (placement does not depend on
+    the width); then the ``case_batching`` smoke trace with
+    ``kv="sharded"`` at 128 bits against its narrow ``kv="vec"`` run."""
+    out = {}
+    for max_bits in (128, 1024):
+        walls = {}
+        for kv in ("vec", "scalar"):
+            rep, trail = run_serving(kv, 4, smoke=False, max_bits=max_bits)
+            if trail != ctx.serving_trail:
+                raise AssertionError(f"{kv} at {max_bits} bits diverged "
+                                     f"from the narrow run")
+            walls[kv] = rep["wall_s"]
+        (rep, trail), launches, inputs, seconds = traced(
+            run_serving, "sharded", 4, smoke=False, max_bits=max_bits)
+        if trail != ctx.serving_trail:
+            raise AssertionError(f"sharded at {max_bits} bits diverged from "
+                                 f"the narrow run")
+        label = f"serving_wide_{max_bits}"
+        rows = check_path(label, launches, inputs, required=WIDE_SHARDED)
+        walls["sharded"] = rep["wall_s"]
+        out[label] = {"parity": list(trail["parity"]), "wall_s": walls,
+                      "launches": launches,
+                      "gcd_pairs": rep["gcd_pairs"],
+                      "cross_composites": rep["cross_composites"],
+                      "sharded_time_split": time_split(
+                          rep["wall_s"], seconds, launches, rows)}
+    arrivals, sizes, vec, vec_trail = ctx.batching
+    out["batching_wide_128"] = sharded_batching(
+        arrivals, sizes, vec, vec_trail, "batching_wide_128", max_bits=128,
+        required=WIDE_SHARDED)
+    return out
+
+
+def phase_launcher_wide(ctx: Context) -> dict:
+    return phase_launcher(ctx, ("--max-bits", "1024"), "launcher_wide",
+                          required=WIDE_SHARDED)
 
 
 PHASES = [
@@ -795,6 +1103,10 @@ PHASES = [
     ("batching", phase_batching),
     ("batching_full", phase_batching_full),
     ("launcher", phase_launcher),
+    ("scale", phase_scale),
+    ("scale_full_scan", phase_scale_full_scan),
+    ("serving_wide", phase_serving_wide),
+    ("launcher_wide", phase_launcher_wide),
 ]
 
 
@@ -806,11 +1118,12 @@ def report(ctx: Context) -> None:
                            "source": src} for n, repl, src in TPU_KERNELS]})
     ported = {n: (src, repl) for n, repl, src in TPU_KERNELS if src}
     rows = []
-    for r in ctx.kernel_rows:
+    for r, launches in ([(r, ctx.launches) for r in ctx.kernel_rows]
+                        + [(r, ctx.scale_launches) for r in ctx.scale_rows]):
         rows.append({
             "name": r["name"], "route": "cuda",
             "source": ported[r["name"]][0], "replaces": ported[r["name"]][1],
-            "launches": ctx.launches[r["name"]],
+            "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"],
             "ms": r["graph_ms"], "graph_ms": r["graph_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -96,16 +96,29 @@ def limbs_to_int(limbs: Sequence[int]) -> int:
 
 
 def pack_limbs(values: Sequence[int], n_limbs: int) -> np.ndarray:
-    """Pack Python-int composites into the ``(N, L)`` int64 kernel matrix."""
-    out = np.zeros((len(values), n_limbs), dtype=np.int64)
-    for i, v in enumerate(values):
-        out[i, :] = int_to_limbs(v, n_limbs)
-    return out
+    """Pack Python-int composites into the ``(N, L)`` int64 kernel matrix
+    (each value's little-endian bytes read as 32-bit words; a negative or
+    too wide value raises as :func:`int_to_limbs` does)."""
+    width = n_limbs * (LIMB_BITS // 8)
+    try:
+        raw = b"".join(int(v).to_bytes(width, "little") for v in values)
+    except OverflowError:
+        for v in values:
+            int_to_limbs(v, n_limbs)        # raises naming the fault
+        raise
+    return np.frombuffer(raw, dtype="<u4").reshape(
+        len(values), n_limbs).astype(np.int64)
 
 
 def unpack_limbs(arr: np.ndarray) -> List[int]:
-    """Exact Python ints back out of an ``(N, L)`` limb matrix."""
-    return [limbs_to_int(row) for row in np.asarray(arr)]
+    """Exact Python ints back out of an ``(N, L)`` limb matrix (each limb
+    taken mod 2**32, as :func:`limbs_to_int` takes it)."""
+    words = np.ascontiguousarray(np.asarray(arr).astype("<u4"))
+    n = words.shape[0]
+    width = words.shape[1] * (LIMB_BITS // 8)
+    raw = words.tobytes()
+    return [int.from_bytes(raw[i * width:(i + 1) * width], "little")
+            for i in range(n)]
 
 
 @dataclass(frozen=True)

@@ -30,11 +30,16 @@ exactly, by unique factorization, through the squarefree-factorization
 kernel — to the member primes the shard owns, so no per-query modulo
 scan ever crosses shard boundaries.
 
+Wide registries (``max_bits > 63``) run the same recipe on
+``(.., L)`` limb rows through the limb kernels: the query chunks are
+packed at the registry's own width, and the gcd exchange rebuilds each
+gcd from the shard's deduplicated query primes (the primes its chunks
+are made of).
+
 This slice runs every shard on one device, as a per-shard loop over the
 kernels — the path ``repro`` takes on a host with fewer devices than
 shards, and bit-identical to its ``shard_map`` path.  The multi-device
-exchange (``torch.distributed``) and wide (multi-limb) registries are
-still to port (ROADMAP.md A.8, A.7).
+exchange (``torch.distributed``) is still to port (ROADMAP.md A.8).
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.sharding.stripes import BlockStripes
 
-from ..composite import encode_relationship
+from ..composite import encode_relationship, limbs_to_int, pack_limbs
 from ..primes import CacheLevel, LEVEL_PRIME_RANGES
 
 __all__ = ["PrimeSpacePartition", "shard_mesh", "sharded_successor_table",
@@ -151,6 +156,17 @@ class ShardScanReport:
     gcd_pairs: int = 0
 
 
+def _check_stacks(**stacks: np.ndarray) -> None:
+    for name, arr in stacks.items():
+        if arr.size and int(arr.min()) < 0:
+            raise ValueError(f"{name} stack holds a negative value")
+
+
+def _up(x: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)
+                            ).to(device)
+
+
 def _one_shard_scan(lc: torch.Tensor, qs: torch.Tensor, ck: torch.Tensor,
                     gathered_cross: torch.Tensor, *, n_chunks: int):
     """One shard's kernel work: local divisibility mask + cross gcds."""
@@ -179,20 +195,82 @@ def _scan_sharded(local_c: np.ndarray, queries: np.ndarray,
     Q), gcds (S, K, X))``.  Every shard runs in turn on ``device``
     against the whole cross-shard slice (what the all-gather of the
     multi-device path would hand each shard)."""
-    for name, arr in (("local", local_c), ("queries", queries),
-                      ("chunks", chunks), ("cross", cross_c)):
-        if arr.size and int(arr.min()) < 0:
-            raise ValueError(f"{name} stack holds a negative value")
-    def up(x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)
-                                ).to(device)
-
-    lc, qs, ck = up(local_c), up(queries), up(chunks)
-    gathered = up(cross_c.reshape(-1))
+    _check_stacks(local=local_c, queries=queries, chunks=chunks,
+                  cross=cross_c)
+    lc, qs, ck = (_up(x, device) for x in (local_c, queries, chunks))
+    gathered = _up(cross_c.reshape(-1), device)
     K = chunks.shape[1]
     masks, gs = [], []
     for s in range(local_c.shape[0]):
         m, g = _one_shard_scan(lc[s], qs[s], ck[s], gathered, n_chunks=K)
+        masks.append(m)
+        gs.append(g)
+    return (torch.stack(masks).cpu().numpy(),
+            torch.stack(gs).cpu().numpy())
+
+
+# --------------------------------------------------------------------------- #
+# multi-limb twin of the shard scan (wide registries)                          #
+# --------------------------------------------------------------------------- #
+
+def _pad_limb_stack(rows: Sequence[np.ndarray], mult: int, L: int,
+                    width: Optional[int] = None) -> np.ndarray:
+    """Stack ragged (n_i, L) limb matrices into (S, W, L); pad rows encode
+    composite value 1 (match nothing) and W is bucketed to ``mult * 2**k``
+    like :func:`_pad_rows`."""
+    need = max([r.shape[0] for r in rows] + [1])
+    if width is None:
+        width = mult
+        while width < need:
+            width *= 2
+    out = np.zeros((len(rows), width, L), dtype=np.int64)
+    out[:, :, 0] = 1
+    for i, r in enumerate(rows):
+        if r.shape[0]:
+            out[i, :r.shape[0], :] = r
+    return out
+
+
+def _one_shard_scan_limbs(lc: torch.Tensor, qs: torch.Tensor,
+                          ck: torch.Tensor, pool: torch.Tensor,
+                          gathered_cross: torch.Tensor, *, n_chunks: int):
+    """One shard's limb-kernel work: local divisibility mask + cross gcds
+    (the recipe of :func:`_one_shard_scan` on (.., L) limb rows; the gcd
+    pool is the shard's own deduplicated, zero-padded query primes, which
+    cover every common factor of its chunks)."""
+    from repro_torch.kernels.factorize import divisibility_mask_limbs
+    from repro_torch.kernels.gcd import gcd_limbs
+
+    gcd_block = 256
+    mask = divisibility_mask_limbs(lc, qs)
+    x, L = gathered_cross.shape
+    a = ck.repeat_interleave(x, dim=0)                  # (K*X, L)
+    b = gathered_cross.repeat(n_chunks, 1)
+    pad = (-a.shape[0]) % gcd_block
+    one = a.new_zeros((pad, L))
+    one[:, 0] = 1
+    g = gcd_limbs(torch.cat([a, one]), torch.cat([b, one]), pool)
+    return mask, g[:n_chunks * x].reshape(n_chunks, x, L)
+
+
+def _scan_sharded_limbs(local_c: np.ndarray, queries: np.ndarray,
+                        chunks: np.ndarray, pools: np.ndarray,
+                        cross_c: np.ndarray,
+                        device) -> Tuple[np.ndarray, np.ndarray]:
+    """Wide twin of :func:`_scan_sharded`: (S, C, L) local limb stacks,
+    (S, K, L) query-chunk limbs, (S, X, L) cross slices and (S, P) gcd
+    pools; returns ``(local_mask (S, C, Q), gcd limbs (S, K, X, L))``."""
+    _check_stacks(local=local_c, queries=queries, chunks=chunks,
+                  pools=pools, cross=cross_c)
+    L = local_c.shape[2]
+    lc, qs, ck, pl = (_up(x, device) for x in (local_c, queries, chunks,
+                                               pools))
+    gathered = _up(cross_c.reshape(-1, L), device)
+    K = chunks.shape[1]
+    masks, gs = [], []
+    for s in range(local_c.shape[0]):
+        m, g = _one_shard_scan_limbs(lc[s], qs[s], ck[s], pl[s], gathered,
+                                     n_chunks=K)
         masks.append(m)
         gs.append(g)
     return (torch.stack(masks).cpu().numpy(),
@@ -226,12 +304,10 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
     if mesh is not None:
         raise NotImplementedError("a multi-device mesh is not ported yet "
                                   "(ROADMAP.md A.8)")
-    if getattr(registry, "wide", False):
-        raise NotImplementedError("wide registries (max_bits > 63) are not "
-                                  "ported yet (ROADMAP.md A.7)")
     from repro_torch.kernels.ops import factorize_batch_exact
 
     S = partition.n_shards
+    wide = getattr(registry, "wide", False)
     keyed = [(int(d), p) for d in data_ids
              if (p := assigner.prime_of(int(d))) is not None]
     arr = registry.composites_view()
@@ -250,11 +326,13 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
     queries = _pad_rows([np.asarray([p for _, p in sh], dtype=np.int64)
                          for sh in by_shard], 512, 0)
     # query chunk products: each shard's owned query primes packed into
-    # < 2**62 composites — the gcd exchange payload
+    # < 2**max_bits composites (2**62 when narrow) — the gcd exchange
+    # payload (one wide chunk usually covers a shard's whole query set)
+    chunk_bits = registry.max_bits if wide else 62
     chunk_vals: List[List[int]] = []
     for sh in by_shard:
         ps = {p for _, p in sh}
-        chunk_vals.append(encode_relationship(ps, 62) if ps else [])
+        chunk_vals.append(encode_relationship(ps, chunk_bits) if ps else [])
     # per-shard cross-slice width bucketed to powers of two, like every
     # other stack (the shapes the multi-device path compiles for)
     need = -(-max(len(cross_pos), 1) // S)
@@ -262,21 +340,43 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
     while per < need:
         per *= 2
 
-    local_c = _pad_rows([arr[np.asarray(pos, dtype=np.int64)]
-                         if pos else np.empty(0, np.int64)
-                         for pos in local_pos], 256, 1)
-    chunks = _pad_rows([np.asarray(cv, dtype=np.int64)
-                        for cv in chunk_vals], 1, 1)
-    cross_arr = (arr[np.asarray(cross_pos, dtype=np.int64)]
-                 if cross_pos else np.empty(0, np.int64))
-    cross_sh = np.ones((S, per), dtype=np.int64)
-    for s in range(S):
-        sl = cross_arr[s * per:(s + 1) * per]
-        cross_sh[s, :sl.shape[0]] = sl
-
     # ---- kernel work ----------------------------------------------------- #
-    mask, gcds = _scan_sharded(local_c, queries, chunks, cross_sh, dev)
-    n_gcd_pairs = int(chunks.shape[1] * cross_sh.size)
+    if wide:
+        limbs = registry.limbs_array()
+        Lw = registry.n_limbs
+        local_c = _pad_limb_stack(
+            [limbs[np.asarray(pos, dtype=np.int64)]
+             if pos else np.empty((0, Lw), np.int64)
+             for pos in local_pos], 256, Lw)
+        chunks = _pad_limb_stack([pack_limbs(cv, Lw) for cv in chunk_vals],
+                                 1, Lw)
+        # the gcd-reconstruction pool: each shard's deduplicated query
+        # primes (zero-padded) — exactly the primes its chunks contain
+        pools = _pad_rows([np.asarray(sorted({p for _, p in sh}),
+                                      dtype=np.int64) for sh in by_shard],
+                          512, 0)
+        cross_limbs = (limbs[np.asarray(cross_pos, dtype=np.int64)]
+                       if cross_pos else np.empty((0, Lw), np.int64))
+        cross_sh = _pad_limb_stack(
+            [cross_limbs[s * per:(s + 1) * per] for s in range(S)],
+            1, Lw, width=per)
+        mask, gcds = _scan_sharded_limbs(local_c, queries, chunks, pools,
+                                         cross_sh, dev)
+        n_gcd_pairs = int(chunks.shape[1] * S * per)
+    else:
+        local_c = _pad_rows([arr[np.asarray(pos, dtype=np.int64)]
+                             if pos else np.empty(0, np.int64)
+                             for pos in local_pos], 256, 1)
+        chunks = _pad_rows([np.asarray(cv, dtype=np.int64)
+                            for cv in chunk_vals], 1, 1)
+        cross_arr = (arr[np.asarray(cross_pos, dtype=np.int64)]
+                     if cross_pos else np.empty(0, np.int64))
+        cross_sh = np.ones((S, per), dtype=np.int64)
+        for s in range(S):
+            sl = cross_arr[s * per:(s + 1) * per]
+            cross_sh[s, :sl.shape[0]] = sl
+        mask, gcds = _scan_sharded(local_c, queries, chunks, cross_sh, dev)
+        n_gcd_pairs = int(chunks.shape[1] * cross_sh.size)
 
     if report is not None:
         report.n_shards = S
@@ -293,11 +393,17 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
         if not by_shard[s] or not cross_pos:
             continue
         pool = np.asarray(sorted({p for _, p in by_shard[s]}), dtype=np.int64)
-        gs = gcds[s]                        # (K, X)
-        hit_k, hit_x = np.nonzero(gs > 1)
+        gs = gcds[s]                        # (K, X) or (K, X, L) limb rows
+        if wide:
+            # value > 1 iff limb 0 > 1 or any higher limb is nonzero
+            hit_k, hit_x = np.nonzero((gs[..., 0] > 1)
+                                      | (gs[..., 1:] != 0).any(axis=-1))
+        else:
+            hit_k, hit_x = np.nonzero(gs > 1)
         valid = hit_x < len(cross_pos)      # drop padding columns
         hit_k, hit_x = hit_k[valid], hit_x[valid]
-        hit_vals = [int(gs[k, x]) for k, x in zip(hit_k, hit_x)]
+        hit_vals = [limbs_to_int(gs[k, x]) if wide else int(gs[k, x])
+                    for k, x in zip(hit_k, hit_x)]
         uniq = sorted(set(hit_vals))
         if not uniq:
             continue

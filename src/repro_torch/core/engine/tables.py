@@ -185,23 +185,25 @@ def successor_table(registry, assigner, data_ids: Sequence[int],
     if discover != "kernel":
         raise ValueError(f"discover must be 'host' or 'kernel', "
                          f"got {discover!r}")
-    if getattr(registry, "wide", False):
-        raise NotImplementedError("wide registries (max_bits > 63) are not "
-                                  "ported yet (ROADMAP.md A.7)")
 
     from repro_torch.kernels.ops import (divisibility_scan,
+                                         divisibility_scan_limbs,
                                          factorize_batch_exact)
 
-    arr = registry.composites_array()
+    wide = getattr(registry, "wide", False)
+    arr = registry.composites_view() if wide else registry.composites_array()
     if arr.size == 0 or not keyed:
         return {d: [] for d, _ in keyed}
 
     # kernel pass 1: registry divisibility scan, chunked over query primes
+    # (wide registries scan their limb matrix with the limb kernel — the
+    # same mask)
     primes = np.asarray([p for _, p in keyed], dtype=np.int64)
+    scan_input = registry.limbs_array() if wide else arr
+    scan = divisibility_scan_limbs if wide else divisibility_scan
     cand: List[np.ndarray] = []
     for lo in range(0, len(primes), chunk):
-        cand.extend(divisibility_scan(arr, primes[lo:lo + chunk],
-                                      device=dev))
+        cand.extend(scan(scan_input, primes[lo:lo + chunk], device=dev))
 
     # kernel pass 2: decode every candidate composite once (Theorem 1
     # check: the decoded factors must contain the query prime)

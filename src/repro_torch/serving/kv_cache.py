@@ -95,11 +95,10 @@ class PagedKVCache:
         the array-state implementation (``kv_cache_vec``), which replaces
         only the *placement* structures above.  ``device`` is where the
         discovery kernels run (placement state stays in numpy on the
-        host).  ``max_bits > 63`` (multi-limb wide registries) is not
-        ported yet."""
-        if max_bits > 63:
-            raise NotImplementedError("wide registries (max_bits > 63) are "
-                                      "not ported yet (ROADMAP.md A.7)")
+        host).  ``max_bits > 63`` runs the registry in multi-limb wide
+        mode (the discovery kernels take their limb twins); chain edges
+        are pairwise either way, so the placement math is identical at
+        every width."""
         self.device = resolve_device(device)
         self.page_size = page_size
         self.hbm_capacity = hbm_pages

@@ -87,7 +87,8 @@ class ShardedPagedKVCache(VectorizedPagedKVCache):
 
     def shard_composites(self) -> Tuple[List[np.ndarray], np.ndarray]:
         """Current registry partition: per-shard-local composite arrays
-        plus the cross-shard array, in global registration order."""
+        plus the cross-shard array, in global registration order (object
+        dtype when the registry is wide)."""
         arr = self.registry.composites_view()
         local_pos, cross_pos = self.partition.classify(self.registry)
         return ([arr[np.asarray(pos, dtype=np.int64)]

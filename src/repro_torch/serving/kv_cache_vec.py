@@ -60,7 +60,8 @@ import numpy as np
 
 from repro_torch.core.composite import encode_relationship
 from repro_torch.core.engine.tables import successor_table
-from repro_torch.kernels.ops import factorize_batch_exact, gcd_batch
+from repro_torch.kernels.ops import (factorize_batch_exact, gcd_batch,
+                                     gcd_batch_limbs)
 from repro_torch.obs.trace import EV_PREFETCH
 
 from .kv_cache import PagedKVCache
@@ -180,15 +181,20 @@ class VectorizedPagedKVCache(PagedKVCache):
                   if (p := self.assigner.prime_of(pid)) is not None]
         enc = encode_relationship(primes, self.registry.max_bits) \
             if primes else []
-        chunks = np.asarray(enc, dtype=np.int64)
+        # wide (multi-limb) chunks exceed int64: exact Python ints in an
+        # object array; the flat / limb kernel split happens at the gcd
+        chunks = np.asarray(enc, dtype=self._chunk_dtype())
         self._chain_chunks[req_id] = (chunks, self._assigner_epoch())
         return chunks
+
+    def _chunk_dtype(self):
+        return object if self.registry.wide else np.int64
 
     def _chunks_of(self, req_id: int) -> np.ndarray:
         """Live chunk array for a request — rebuilt when any prime
         release happened since it was cached (see ``_chain_chunks``)."""
         if req_id not in self.chains:
-            return np.empty(0, dtype=np.int64)
+            return np.empty(0, dtype=self._chunk_dtype())
         cached = self._chain_chunks.get(req_id)
         if cached is not None and cached[1] == self._assigner_epoch():
             return cached[0]
@@ -330,7 +336,7 @@ class VectorizedPagedKVCache(PagedKVCache):
     def _shared_primes(self, gcds: np.ndarray,
                        pool: np.ndarray) -> Set[int]:
         """Decode pairwise chunk gcds into the shared prime set through
-        the squarefree-factorization kernel."""
+        the squarefree factorization (flat or limb kernels, by width)."""
         gs = sorted({int(g) for g in gcds if int(g) > 1})
         if not gs:
             return set()
@@ -350,7 +356,11 @@ class VectorizedPagedKVCache(PagedKVCache):
                            ) -> Dict[Tuple[int, int], List[int]]:
         """Shared pages for many request pairs through ONE batched gcd
         call (all chunk cross-products concatenated), decoded by one
-        squarefree-factorization call per pair."""
+        squarefree-factorization call per pair.  Wide registries take the
+        limb gcd kernel with the union of the side-a chain primes as the
+        reconstruction pool (the common primes of any pair are a subset
+        of that side's chain)."""
+        dt = self._chunk_dtype()
         blocks: List[Tuple[Tuple[int, int], np.ndarray, np.ndarray]] = []
         pools: List[List[int]] = []
         for ra, rb in pairs:
@@ -360,11 +370,16 @@ class VectorizedPagedKVCache(PagedKVCache):
             pools.append([p for pid in self.chains.get(ra, [])
                           if (p := self.assigner.prime_of(pid)) is not None])
         flat_a = np.concatenate([a for _, a, _ in blocks]) if blocks \
-            else np.empty(0, dtype=np.int64)
+            else np.empty(0, dtype=dt)
         flat_b = np.concatenate([b for _, _, b in blocks]) if blocks \
-            else np.empty(0, dtype=np.int64)
+            else np.empty(0, dtype=dt)
         if not flat_a.size:
-            gcds = np.empty(0, dtype=np.int64)
+            gcds = np.empty(0, dtype=dt)
+        elif self.registry.wide:
+            union_pool = sorted({q for pl in pools for q in pl})
+            gcds = np.asarray(gcd_batch_limbs(flat_a, flat_b, union_pool,
+                                              device=self.device),
+                              dtype=object)
         else:
             gcds = gcd_batch(flat_a, flat_b, device=self.device)
         out: Dict[Tuple[int, int], List[int]] = {}

@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch
-version on the same card inputs, the ``ops`` wrappers and the sharded
-serving path on ``"cuda"`` against ``"cpu"``.  Every test is marked
+"""The port on the card: each CUDA kernel (flat and multi-limb) against
+its plain PyTorch version on the same card inputs, the ``ops`` wrappers
+and the sharded serving path, narrow and wide, on ``"cuda"`` against
+``"cpu"``.  Every test is marked
 ``gpu`` and skips when CUDA is absent; on a card run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``
 (this file imports no JAX, so it runs where only the port is
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.composite import pack_limbs
 from repro_torch.kernels import factorize, gcd, launch_counts, ops, ref
 from repro_torch.serving.engine import ServingEngine
 
@@ -50,7 +52,9 @@ def test_cuda_wrappers_count_launches_and_check_inputs(cuda_device):
     ops.divisibility_scan([6, 10], [2, 5], device="cuda")
     ops.factorize_batch([6, 10], [2, 5], device="cuda")
     after = launch_counts()
-    assert all(after[k] == before[k] + 1 for k in before)
+    flat = ("divisibility_mask", "factorize_squarefree", "gcd")
+    assert {k: after[k] - before[k] for k in before} == {
+        k: int(k in flat) for k in before}
     empty = torch.empty(0, dtype=torch.int64, device=cuda_device)
     assert gcd.gcd(empty, empty).numel() == 0
     assert launch_counts() == after
@@ -74,13 +78,71 @@ def test_cuda_ops_match_cpu(cuda_device, n, q):
         assert repr(got) == repr(want), fn.__name__
 
 
+def _limb_inputs(n, p, n_limbs, seed):
+    """Limb rows (products of pool primes, a squared factor, random rows,
+    0 and 1) and a pool of distinct primes with one repeat and the pads
+    0 and 1."""
+    rng = np.random.default_rng(seed)
+    _, primes = kernel_inputs(1, max(p, 8), np.int64, seed)
+    live = [int(q) for q in primes if q > 1]
+    pool = np.asarray(live[:max(p - 3, 1)] + [live[0], 0, 1], np.int64)[:p]
+    vals = []
+    for i in range(n):
+        if i % 4 == 3:
+            vals.append(int.from_bytes(rng.bytes(4 * n_limbs), "little"))
+            continue
+        v = 1
+        for q in rng.permutation(live)[:int(rng.integers(1, 40))]:
+            if (v * int(q)).bit_length() < 32 * n_limbs:
+                v *= int(q)
+        vals.append(v * 4 if (v * 4).bit_length() < 32 * n_limbs else v)
+    vals[:2] = [0, 1][:n]
+    return pack_limbs(vals, n_limbs), pool
+
+
 @pytest.mark.gpu
-def test_cuda_sharded_serving_matches_cpu(cuda_device):
+@pytest.mark.parametrize("n_limbs", [2, 3, 8, 32])
+@pytest.mark.parametrize("n,p", [(1, 1), (37, 300), (1000, 517)])
+def test_cuda_limb_kernels_match_plain(cuda_device, n_limbs, n, p):
+    limbs, pool = _limb_inputs(n, p, n_limbs, seed=n + p + n_limbs)
+    c = torch.from_numpy(limbs).to(cuda_device)
+    q = torch.from_numpy(pool).to(cuda_device)
+    assert torch.equal(factorize.divisibility_mask_limbs(c, q),
+                       ref.divisibility_mask_limbs_ref(c, q))
+    for x, y in zip(factorize.factorize_limbs(c, q),
+                    ref.factorize_limbs_ref(c, q)):
+        assert torch.equal(x, y)
+    b = torch.roll(c, 1, dims=0)
+    assert torch.equal(gcd.gcd_limbs(c, b, q), ref.gcd_limbs_ref(c, b, q))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_limb_ops_match_cpu(cuda_device):
+    before = launch_counts()
+    limbs, pool = _limb_inputs(300, 200, 8, seed=3)
+    vals = [int.from_bytes(r.astype("<u4").tobytes(), "little")
+            for r in limbs]
+    b = vals[7:] + vals[:7]
+    for fn, args in ((ops.divisibility_scan_limbs, (limbs, pool)),
+                     (ops.factorize_batch_limbs, (vals, pool)),
+                     (ops.gcd_batch_limbs, (vals, b, pool))):
+        got, want = fn(*args, device="cuda"), fn(*args, device="cpu")
+        assert repr(got) == repr(want), fn.__name__
+    after = launch_counts()
+    assert all(after[k] == before[k] + 1 for k in
+               ("divisibility_mask_limbs", "factorize_limbs", "gcd_limbs"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_bits", [62, 1024])
+def test_cuda_sharded_serving_matches_cpu(cuda_device, max_bits):
     def run(device):
         rng = np.random.default_rng(0)
         eng = ServingEngine(None, None, max_batch=16, page_size=16,
                             hbm_pages=24, kv="sharded", prefetch_budget=4,
-                            reread_window=2, shards=2, device=device)
+                            reread_window=2, shards=2, max_bits=max_bits,
+                            device=device)
         groups = [list(rng.integers(0, 30_000, size=64)) for _ in range(6)]
         for r in range(48):
             tail = list(rng.integers(0, 30_000,
@@ -93,12 +155,19 @@ def test_cuda_sharded_serving_matches_cpu(cuda_device):
     card = run("cuda")
     launched = {k: v - before[k] for k, v in launch_counts().items()}
     host = run("cpu")
-    assert min(launched.values()) > 0, launched
+    path = (["divisibility_mask", "factorize_squarefree", "gcd"]
+            if max_bits == 62 else
+            ["divisibility_mask_limbs", "factorize_squarefree", "gcd_limbs"])
+    assert min(launched[k] for k in path) > 0, launched
     assert card.pages.stats.parity_tuple() == host.pages.stats.parity_tuple()
     assert card.pages.prefetch_log == host.pages.prefetch_log
     assert card.pages.successor_rows() == host.pages.successor_rows()
     assert card.pages.last_scan == host.pages.last_scan
     assert card.pages.last_scan.cross_composites > 0
-    ra, rb = registry_arrays(card.pages), registry_arrays(host.pages)
-    assert ra["members"] == rb["members"]
-    np.testing.assert_array_equal(ra["composites"], rb["composites"])
+    if max_bits == 62:
+        ra, rb = registry_arrays(card.pages), registry_arrays(host.pages)
+        assert ra["members"] == rb["members"]
+        np.testing.assert_array_equal(ra["composites"], rb["composites"])
+    else:
+        assert card.pages.registry.composites_list() == \
+            host.pages.registry.composites_list()

@@ -1,8 +1,9 @@
 """The port's boundaries: it imports neither JAX nor the reference, its
 entry points default to the card and raise without one, the parts of
 the reference it does not have yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them, and ``chip_smoke.py`` exits
-non-zero without a card and names the phase that failed."""
+the ROADMAP.md item that ports them (wide registries no longer do), and
+``chip_smoke.py`` exits non-zero without a card and names the phase
+that failed."""
 
 import torch_parity  # noqa: F401
 
@@ -117,8 +118,6 @@ NOT_PORTED = {
     "dedup": (lambda: SlotMachine(dedup=True, device="cpu"), "A.12"),
     "moe": (lambda: SlotMachine(moe="vec", device="cpu"), "A.10"),
     "model": (lambda: ServingEngine(object(), None, device="cpu"), "A.14"),
-    "wide": (lambda: VectorizedPagedKVCache(max_bits=128, device="cpu"),
-             "A.7"),
     "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
              "A.8"),
     "resize": (lambda: SlotMachine(kv="sharded", device="cpu").resize(4),
@@ -134,6 +133,16 @@ def test_unported_features_raise(name):
     fn, item = NOT_PORTED[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         fn()
+
+
+def test_wide_registries_are_ported():
+    """A wide registry (``max_bits > 63``) no longer raises: the cache
+    registers a request in multi-limb mode and touches its pages."""
+    cache = VectorizedPagedKVCache(max_bits=128, device="cpu")
+    pages = cache.register_request(0, list(range(64)))
+    assert cache.registry.wide and cache.registry.n_limbs == 4
+    assert len(pages) == 4
+    assert cache.touch_batch([(0, 0), (0, 0)]) == ["new", "hbm"]
 
 
 # --------------------------------------------------------------------------- #
@@ -244,7 +253,7 @@ def test_chip_smoke_checks_every_shape_a_path_gave(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    launches = {name: 2 for name in chip_smoke.PORTED}
+    launches = {name: 2 for name in chip_smoke.FLAT}
     rows = chip_smoke.check_path("t", launches, _captured_inputs(),
                                  timed=False)
     assert {r["name"]: r["shapes_checked"] for r in rows} == {
@@ -273,8 +282,8 @@ def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
     calls; the graph-replay figure is an estimate, null without a graph
     time."""
     chip_smoke = _chip_smoke()
-    launches = {name: 3 for name in chip_smoke.PORTED}
-    rows = [{"name": name, "graph_ms": 2.0} for name in chip_smoke.PORTED]
+    launches = {name: 3 for name in chip_smoke.FLAT}
+    rows = [{"name": name, "graph_ms": 2.0} for name in chip_smoke.FLAT]
     seconds = {"refresh_s": 4.0, "kernel_calls_s": 1.0,
                "kernel_calls_launches": 9}
     split = chip_smoke.time_split(10.0, seconds, launches, rows)
@@ -288,3 +297,85 @@ def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
     assert split["device_busy_upper_share"] is None
     assert split["launches_outside_kernel_calls"] == 1
     assert split["device_busy_graph_est_s"] is None
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` on the CPU (times read 0)."""
+
+    def __init__(self, **kw):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.0
+
+
+def test_chip_smoke_full_scan_checks_on_cpu(monkeypatch):
+    """``scale_full_scan`` on a small ``case_scale`` registry, on the CPU:
+    the mask equals its plain version, no false positive, the sampled
+    primes' hits equal the exact host scan; a mask wrong in one row
+    fails the phase."""
+    chip_smoke = _chip_smoke()
+    from repro_torch import kernels
+    from repro_torch.cases import build_scale_universe
+    from repro_torch.kernels import factorize
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "FULL_SCAN_CHUNK", 500)
+    monkeypatch.setattr(chip_smoke, "loop_ms", lambda fn, **kw: 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    ctx = chip_smoke.Context()
+    ctx.universe = build_scale_universe(n_chains=64, depth=20)
+    plain = factorize.divisibility_mask_limbs
+
+    def counted(limbs, primes):
+        kernels.KERNELS["divisibility_mask_limbs"].launches += 1
+        return plain(limbs, primes)
+
+    monkeypatch.setattr(factorize, "divisibility_mask_limbs", counted)
+    out = chip_smoke.phase_scale_full_scan(ctx)
+    assert out["false_positives"] == 0 and out["exact_primes"] == 8
+    assert out["hits"] > 0 and out["launches"]["divisibility_mask_limbs"] == 1
+    assert out["shape"] == [[len(ctx.universe.registry.composites_list()), 32],
+                            [len(ctx.universe.queries)]]
+
+    def wrong(limbs, primes):
+        mask = counted(limbs, primes)
+        mask[700, 0] = ~mask[700, 0]
+        return mask
+
+    monkeypatch.setattr(factorize, "divisibility_mask_limbs", wrong)
+    with pytest.raises(AssertionError, match="rows 500:1000"):
+        chip_smoke.phase_scale_full_scan(ctx)
+
+
+def test_chip_smoke_wide_paths_name_their_kernels(monkeypatch):
+    """A wide path must launch the limb scan and the limb gcd: a run that
+    did not launch one fails ``check_path``, and a kernel launched but
+    not captured fails too."""
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    limbs = torch.tensor([[6, 0], [35, 0], [1, 0]], dtype=torch.int64)
+    pool = torch.tensor([2, 3, 5, 7, 0], dtype=torch.int64)
+    key = ("int64", ((3, 2), (5,)))
+    gkey = ("int64", ((3, 2), (3, 2), (5,)))
+    inputs = {"divisibility_mask_limbs": {key: (limbs, pool)},
+              "gcd_limbs": {gkey: (limbs, limbs.roll(1, 0), pool)}}
+    launches = dict.fromkeys(chip_smoke.PORTED, 0)
+    launches.update(divisibility_mask_limbs=4, gcd_limbs=4)
+    rows = chip_smoke.check_path("wide", launches, inputs, timed=False,
+                                 required=["divisibility_mask_limbs",
+                                           "gcd_limbs"])
+    assert [r["name"] for r in rows] == ["divisibility_mask_limbs",
+                                         "gcd_limbs"]
+    with pytest.raises(AssertionError, match="not launched"):
+        chip_smoke.check_path("wide", launches, inputs, timed=False,
+                              required=chip_smoke.WIDE_SHARDED)
+    with pytest.raises(AssertionError, match="uncaptured"):
+        chip_smoke.check_path("wide", dict(launches, factorize_limbs=1),
+                              inputs, timed=False,
+                              required=["divisibility_mask_limbs"])
