@@ -173,17 +173,11 @@ def _one_shard_scan(lc: torch.Tensor, qs: torch.Tensor, ck: torch.Tensor,
     from repro_torch.kernels.factorize import divisibility_mask
     from repro_torch.kernels.gcd import gcd
 
-    gcd_block = 256
     mask = divisibility_mask(lc, qs)
     # batched-gcd exchange: every query chunk x every cross composite
     x = gathered_cross.shape[0]
-    a = ck.repeat_interleave(x)
-    b = gathered_cross.repeat(n_chunks)
-    pad = (-a.shape[0]) % gcd_block
-    a = torch.cat([a, a.new_ones(pad)])
-    b = torch.cat([b, b.new_ones(pad)])
-    g = gcd(a, b)
-    return mask, g[:n_chunks * x].reshape(n_chunks, x)
+    g = gcd(ck.repeat_interleave(x), gathered_cross.repeat(n_chunks))
+    return mask, g.reshape(n_chunks, x)
 
 
 def _scan_sharded(local_c: np.ndarray, queries: np.ndarray,
@@ -241,16 +235,11 @@ def _one_shard_scan_limbs(lc: torch.Tensor, qs: torch.Tensor,
     from repro_torch.kernels.factorize import divisibility_mask_limbs
     from repro_torch.kernels.gcd import gcd_limbs
 
-    gcd_block = 256
     mask = divisibility_mask_limbs(lc, qs)
     x, L = gathered_cross.shape
-    a = ck.repeat_interleave(x, dim=0)                  # (K*X, L)
-    b = gathered_cross.repeat(n_chunks, 1)
-    pad = (-a.shape[0]) % gcd_block
-    one = a.new_zeros((pad, L))
-    one[:, 0] = 1
-    g = gcd_limbs(torch.cat([a, one]), torch.cat([b, one]), pool)
-    return mask, g[:n_chunks * x].reshape(n_chunks, x, L)
+    g = gcd_limbs(ck.repeat_interleave(x, dim=0),        # (K*X, L)
+                  gathered_cross.repeat(n_chunks, 1), pool)
+    return mask, g.reshape(n_chunks, x, L)
 
 
 def _scan_sharded_limbs(local_c: np.ndarray, queries: np.ndarray,

@@ -352,6 +352,34 @@ def test_chip_smoke_full_scan_checks_on_cpu(monkeypatch):
         chip_smoke.phase_scale_full_scan(ctx)
 
 
+def test_chip_smoke_limb_bound_counts_needed_steps():
+    """The limb kernels' operation counts take only the steps these
+    inputs need: Horner over each row's significant limbs (none for a
+    zero row), short division over the residual's, the gcd's b test only
+    where a is divisible and its multiply over the product's limbs."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+
+    def rows(*values):
+        return torch.tensor([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
+                             for v in values], dtype=torch.int64)
+
+    a, b = rows(0, 1, 6, 3 << 40), rows(0, 1, 3, 1 << 41)
+    pool = torch.tensor([2, 3, 0, 1], dtype=torch.int64)
+    assert chip_smoke.significant_limbs(a).tolist() == [0, 1, 1, 2]
+    mask = ref.divisibility_mask_limbs_ref(a, pool)
+    # Horner: 2 live primes x (0 + 1 + 1 + 2) limbs
+    assert chip_smoke.limb_work("divisibility_mask_limbs", (a, pool),
+                                (mask,))[1] == 8
+    # + divisions: 6 by 2 then 3 (1 + 1), 3 * 2**40 by 2 then 3 (2 + 2)
+    outs = ref.factorize_limbs_ref(a, pool)
+    assert chip_smoke.limb_work("factorize_limbs", (a, pool), outs)[1] == 14
+    # + b tests: 2 x 0 + 0 x 1 + 2 x 1 + 2 x 2 limbs; + multiplies:
+    # 2 common primes for the zero pair, 1 for each of the last two
+    g = ref.gcd_limbs_ref(a, b, pool)
+    assert chip_smoke.limb_work("gcd_limbs", (a, b, pool), (g,))[1] == 18
+
+
 def test_chip_smoke_wide_paths_name_their_kernels(monkeypatch):
     """A wide path must launch the limb scan and the limb gcd: a run that
     did not launch one fails ``check_path``, and a kernel launched but
