@@ -21,8 +21,11 @@ went, ``sharded_time_split``):
   kernel_check   each kernel against its plain PyTorch version on the card
                  at registry-refresh sizes: the flat kernels in int32 and
                  int64, the limb kernels at 2, 3, 8 and 32 limbs with zero,
-                 value-1 and non-squarefree rows, pad primes and ragged
-                 shapes (exact);
+                 value-1 and non-squarefree rows, pad primes, ragged
+                 shapes and the edges of their arithmetic (even entries,
+                 powers of two, the largest primes below 2**31, all-ones
+                 rows, rows whose top limb is the first, a middle or the
+                 last) (exact);
   serving_full   ``case_serving``'s full configuration through
                  ``ServingEngine`` with ``kv="vec"``, ``"scalar"`` and
                  ``"sharded"`` (two shards): equal parity counters, every
@@ -65,9 +68,12 @@ kernels: the same from the ``scale`` run) and, last,
 
 Every path that launches the kernels holds each kernel against its plain
 version on one input of every distinct shape and dtype the path gave it,
-and times it at the largest.  Every check raises; the first failure
-prints ``{"phase": ..., "error": ..., "traceback": ...}`` on stdout and
-exits 1.  No measurement decides pass or fail.  Kernel times are
+times it in full at the largest, and by graph replay at every shape it
+launched at, with the launches at each: the sharded runs' device time per
+kernel is the sum of launches times graph ms over its shapes.  Every
+check raises; the first failure prints ``{"phase": ..., "error": ...,
+"traceback": ...}`` on stdout and exits 1.  No measurement decides pass
+or fail.  Kernel times are
 CUDA-event times: ``graph_ms`` per launch replayed from a captured CUDA
 graph (no host work between launches; ``ms`` in the ``kernels`` line,
 null when the capture failed), ``wrapper_ms`` per call of the
@@ -309,22 +315,45 @@ def synthetic_inputs(dtype, rng):
             "gcd": (t(a), t(b))}
 
 
+#: pool entries the limb checks add: powers of two (small and 2**30), an
+#: even composite, and the largest primes below 2**31
+ADVERSARIAL_POOL = (2, 4, 6, 2**30, 2_147_483_647, 2_147_483_629)
+#: a prime below 2**31 that no pool of the limb checks holds
+OUTSIDE_PRIME = 2_147_483_587
+
+
+def adversarial_rows(n_limbs: int, rng) -> list:
+    """Values of ``n_limbs`` limbs at the edges of the limb kernels'
+    arithmetic: all limbs 0xFFFFFFFF; a top nonzero limb at limb 0, a
+    middle limb and limb L - 1; multiples of the even and largest pool
+    entries."""
+    top = 1 << (32 * n_limbs)
+    out = [top - 1]
+    for k in sorted({0, n_limbs // 2, n_limbs - 1}):
+        out.append(int(rng.integers(1, 2**32)) << (32 * k)
+                   | int.from_bytes(rng.bytes(4 * k), "little"))
+    out += [2**30 * 2_147_483_647 * 3, 6 * 2_147_483_629 * 5,
+            4 * 2_147_483_647, 2**30]
+    return [v % top for v in out]
+
+
 def synthetic_limb_inputs(n_limbs: int, rng):
     """Limb-kernel inputs at registry-refresh sizes with ragged edges:
     mask 4099 x 1030, factorize 2051 x 1030, gcd 16,411 pairs against a
     1030-entry pool.  Composites are products of distinct pool primes that
     fit ``32 * n_limbs`` bits, some times a squared prime, random limb
-    rows, zero rows and value-1 rows; the pool holds distinct primes below
-    2**31, one of them twice, and the pads 0 and 1; gcd pairs share
-    primes, and include a zero pair and a pair sharing a prime the pool
-    lacks."""
+    rows, zero rows, value-1 rows and ``adversarial_rows``; the pool holds
+    distinct primes below 2**31, one of them twice, ``ADVERSARIAL_POOL``
+    and the pads 0 and 1; gcd pairs share primes, and include a zero pair,
+    a pair sharing a prime the pool lacks, and runs of pairs sharing their
+    a or their b row."""
     from repro_torch.core.composite import pack_limbs
 
     bits = 32 * n_limbs
     primes = _primes_upto(1 << 21)
-    pool = np.concatenate([rng.choice(primes[primes > 1000], size=1020,
+    pool = np.concatenate([rng.choice(primes[primes > 1000], size=1016,
                                       replace=False),
-                           [2, 3, 5, 2_147_483_629, 0, 1, 0, 1, 0, 7]])
+                           [3, 5, *ADVERSARIAL_POOL, 0, 1, 0, 1, 0, 7]])
     pool[-1] = pool[0]
     pool = rng.permutation(pool)
     live = pool[pool > 1]
@@ -344,13 +373,17 @@ def synthetic_limb_inputs(n_limbs: int, rng):
                 v *= 9
             out.append(v)
         out[:4] = [0, 1, 0, 45]
+        edge = adversarial_rows(n_limbs, rng)
+        out[6:6 + len(edge)] = edge
         return pack_limbs(out, n_limbs)
 
     a = composites(16_411)
     b = np.roll(a, 7, axis=0)
     b[0] = 0                                  # a zero pair (a[0] == 0)
-    a[5], b[5] = pack_limbs([2_147_483_647 * 3, 2_147_483_647 * 5],
+    a[5], b[5] = pack_limbs([OUTSIDE_PRIME * 3, OUTSIDE_PRIME * 5],
                             n_limbs)          # common prime not in the pool
+    a[100:400] = a[100]                       # runs of pairs sharing a side,
+    b[500:800] = b[500]                       # as the sharded exchange gives
 
     def t(x):
         return torch.from_numpy(np.asarray(x, dtype=np.int64)).to(DEVICE)
@@ -452,31 +485,125 @@ def multiply_steps(common: torch.Tensor, pool: torch.Tensor,
     return steps
 
 
+def trailing_zero_bits(limbs: torch.Tensor) -> torch.Tensor:
+    """(N,) trailing zero bits of each row's value; 32 L for a zero row,
+    more than any pool entry's power of two."""
+    nz = limbs != 0
+    first = nz.to(torch.int8).argmax(dim=1)
+    low = limbs.gather(1, first[:, None]).squeeze(1)
+    ctz = torch.log2((low & -low).clamp(min=1).double()).long()
+    return torch.where(nz.any(dim=1), 32 * first + ctz,
+                       torch.full_like(first, 32 * limbs.shape[1]))
+
+
+def split_entries(pool: torch.Tensor):
+    """``(t, q)`` with ``pool = 2**t * q``, q odd, for entries > 1; q = 0
+    for the entries <= 1, which never divide (``limb_mod.cuh``)."""
+    live = pool > 1
+    p = torch.where(live, pool, torch.ones_like(pool))
+    t = torch.log2((p & -p).double()).long()
+    return t, torch.where(live, p >> t, torch.zeros_like(p))
+
+
+def montgomery_runs(limbs: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+    """(N, P) bool: the (row, entry) pairs on which the limb kernels run a
+    Montgomery pass (``limb_mod.cuh``): the entry's odd part is > 1 and its
+    power of two divides the row; the others are settled by one compare."""
+    t, q = split_entries(pool)
+    tz = trailing_zero_bits(limbs)
+    return (q > 1)[None, :] & (t[None, :] <= tz[:, None])
+
+
+def horner_steps(limbs: torch.Tensor, pool: torch.Tensor) -> int:
+    """Montgomery steps of a divisibility test of every row against every
+    entry: each row's significant limbs on each (row, entry) pair that
+    runs a pass; grouped by the entries' power of two, so that no (N, P)
+    tensor is made at the full scan's size."""
+    t, q = split_entries(pool)
+    n, tz = significant_limbs(limbs), trailing_zero_bits(limbs)
+    steps = 0
+    for tv in torch.unique(t[q > 1]).tolist():
+        steps += (int(((q > 1) & (t == tv)).sum())
+                  * int(n[tz >= tv].sum()))
+    return steps
+
+
+def gcd_first_sides(a: torch.Tensor, b: torch.Tensor):
+    """``(a_first, fresh)``, (N,) bool each: the side each pair tests
+    against the whole pool, as ``gcd_limbs.cu`` picks it over the pairs in
+    order with one cached row (the cached row's side when a or b equals
+    it; else a side equal to the previous pair's, a first; else the side
+    with fewer significant limbs, a on a tie), and whether that test is
+    made anew (the row is not the cached one).  The kernel's warps each
+    start with nothing cached, so they make at least these tests."""
+    na, nb = significant_limbs(a).tolist(), significant_limbs(b).tolist()
+    rows_a = [tuple(r) for r in a.tolist()]
+    rows_b = [tuple(r) for r in b.tolist()]
+    a_first, fresh, cached, prev = [], [], None, (None, None)
+    for ra, rb, la, lb in zip(rows_a, rows_b, na, nb):
+        if ra == cached or rb == cached:
+            a_first.append(ra == cached)
+            fresh.append(False)
+        else:
+            side_a = ra == prev[0] or (rb != prev[1] and la <= lb)
+            a_first.append(side_a)
+            fresh.append(True)
+            cached = ra if side_a else rb
+        prev = (ra, rb)
+    return (torch.tensor(a_first, dtype=torch.bool, device=a.device),
+            torch.tensor(fresh, dtype=torch.bool, device=a.device))
+
+
 def limb_work(name: str, args, outs) -> tuple:
     """``(bytes, operations)`` a limb kernel must move and do on these
     inputs: each input read once, each output written once; one
-    operation per Horner, short-division or multiply step on a live
-    prime (> 1), counting only the steps these inputs need: a Horner
-    pass takes the row's significant limbs, a division the residual's,
-    a multiply the product's; gcd tests b only where a is divisible and
-    multiplies only where both are."""
+    operation per Montgomery, short-division or multiply step, counting
+    only the steps these inputs need (``horner_steps`` for a
+    divisibility test, the residual's significant limbs for a division,
+    the product's for a multiply).  The gcd tests one side of each pair
+    against the whole pool where ``gcd_first_sides`` says it is tested
+    anew, the other side only where that one is divisible, and multiplies
+    only where both are."""
     from repro_torch.kernels import ref
 
     limbs, pool = args[0], args[-1]
     n, nl = limbs.shape
-    live = int((pool > 1).sum())
     words = 8 * (n * nl)
-    horner = live * int(significant_limbs(limbs).sum())
     if name == "divisibility_mask_limbs":
-        return words + 8 * pool.numel() + outs[0].numel(), horner
+        return (words + 8 * pool.numel() + outs[0].numel(),
+                horner_steps(limbs, pool))
     if name == "factorize_limbs":
         return (2 * words + 8 * pool.numel() + outs[0].numel(),
-                horner + division_steps(limbs, outs[0], pool))
-    in_a = ref.divisibility_mask_limbs_ref(args[0], pool)
-    common = in_a & ref.divisibility_mask_limbs_ref(args[1], pool)
-    b_steps = int((in_a.sum(dim=1) * significant_limbs(args[1])).sum())
+                horner_steps(limbs, pool)
+                + division_steps(limbs, outs[0], pool))
+    a, b = args[0], args[1]
+    in_a = ref.divisibility_mask_limbs_ref(a, pool)
+    in_b = ref.divisibility_mask_limbs_ref(b, pool)
+    na, nb = significant_limbs(a), significant_limbs(b)
+    a_first, fresh = gcd_first_sides(a, b)
+    runs_a, runs_b = montgomery_runs(a, pool), montgomery_runs(b, pool)
+    runs1 = torch.where(a_first[:, None], runs_a, runs_b) & fresh[:, None]
+    runs2 = torch.where(a_first[:, None], in_a & runs_b, in_b & runs_a)
+    n1, n2 = torch.where(a_first, na, nb), torch.where(a_first, nb, na)
+    steps = int((runs1.sum(dim=1) * n1).sum() + (runs2.sum(dim=1) * n2).sum())
     return (3 * words + 8 * pool.numel(),
-            horner + b_steps + multiply_steps(common, pool, nl))
+            steps + multiply_steps(in_a & in_b, pool, nl))
+
+
+def kernel_work(name: str, args, outs) -> tuple:
+    """``(bytes, operations, shape)`` of one kernel call on these inputs."""
+    elem = args[0].element_size()
+    if name in LIMB:
+        return (*limb_work(name, args, outs), [list(a.shape) for a in args])
+    if name == "gcd":
+        n = args[0].numel()
+        return 3 * n * elem, euclid_steps(*args), [n]
+    n, p = args[0].numel(), args[1].numel()
+    n_bytes, n_ops = (n + p) * elem + n * p, n * p
+    if name == "factorize_squarefree":
+        n_bytes += n * elem
+        n_ops += int(outs[0].sum())              # one division per hit
+    return n_bytes, n_ops, [n, p]
 
 
 def check_and_time(name: str, args) -> dict:
@@ -485,23 +612,7 @@ def check_and_time(name: str, args) -> dict:
     bound from these inputs."""
     kern, plain = kernel_pair(name)
     err, outs_k = check_exact(name, args)
-    elem = args[0].element_size()
-    if name in LIMB:
-        n_bytes, n_ops = limb_work(name, args, outs_k)
-        shape = [list(a.shape) for a in args]
-    elif name == "gcd":
-        n = args[0].numel()
-        n_bytes = 3 * n * elem
-        n_ops = euclid_steps(*args)
-        shape = [n]
-    else:
-        n, p = args[0].numel(), args[1].numel()
-        n_bytes = (n + p) * elem + n * p
-        n_ops = n * p
-        if name == "factorize_squarefree":
-            n_bytes += n * elem
-            n_ops += int(outs_k[0].sum())        # one division per hit
-        shape = [n, p]
+    n_bytes, n_ops, shape = kernel_work(name, args, outs_k)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     row = {"name": name, "dtype": str(args[0].dtype).replace("torch.", ""),
            "shape": shape, "bytes": n_bytes, "operations": n_ops,
@@ -516,17 +627,37 @@ def check_and_time(name: str, args) -> dict:
     return row
 
 
+def check_and_graph_time(name: str, args) -> dict:
+    """The kernel against its plain version on these inputs (exact, or
+    raise), its graph-replay time (null with the error when the capture
+    failed) and its bound: the lighter measurement of a path's smaller
+    shapes."""
+    kern, _ = kernel_pair(name)
+    _, outs_k = check_exact(name, args)
+    n_bytes, n_ops, shape = kernel_work(name, args, outs_k)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    row = {"shape": shape, "bound_ms": b_ms, "bound_by": b_by}
+    try:
+        row["graph_ms"] = graph_ms(lambda: kern(*args))
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        row["graph_ms"] = None
+        row["graph_error"] = f"{type(exc).__name__}: {exc}"[:300]
+    return row
+
+
 class Capture:
     """Keeps one copy of the inputs of every distinct shape and dtype that
     each kernel wrapper saw during a run (``inputs[name][key]``; the
-    callers pad to bucketed widths, so there are few), so that the kernels
-    can be checked at every shape the path gave them.  The wrapped
+    callers pad to bucketed widths, so there are few) and the launches
+    made at each (``launches[name][key]``), so that the kernels can be
+    checked and timed at every shape the path gave them.  The wrapped
     functions call the originals, whose launch counts are unchanged."""
 
     def __init__(self):
         from repro_torch.kernels import factorize, gcd, ops
 
-        self.inputs = {}
+        self.inputs, self.launches = {}, {}
         self._undo = []
         for mod in (factorize, gcd, ops):
             for name in PORTED:
@@ -534,16 +665,25 @@ class Capture:
                     self._wrap(mod, name)
 
     def _wrap(self, mod, name):
+        from repro_torch.kernels import KERNELS
+
         orig = getattr(mod, name)
 
         def wrapped(*args):
-            if args[0].device.type == DEVICE:
-                key = (str(args[0].dtype).replace("torch.", ""),
-                       tuple(tuple(a.shape) for a in args))
-                seen = self.inputs.setdefault(name, {})
-                if key not in seen:
-                    seen[key] = tuple(a.clone() for a in args)
-            return orig(*args)
+            if args[0].device.type != DEVICE:
+                return orig(*args)
+            key = (str(args[0].dtype).replace("torch.", ""),
+                   tuple(tuple(a.shape) for a in args))
+            seen = self.inputs.setdefault(name, {})
+            if key not in seen:
+                seen[key] = tuple(a.clone() for a in args)
+            before = KERNELS[name].launches
+            try:
+                return orig(*args)
+            finally:
+                counts = self.launches.setdefault(name, {})
+                counts[key] = (counts.get(key, 0)
+                               + KERNELS[name].launches - before)
 
         setattr(mod, name, wrapped)
         self._undo.append((mod, name, orig))
@@ -602,8 +742,8 @@ class Timers:
 
 def traced(run, *args, **kw):
     """``run(*args, **kw)`` with every kernel launch counted (from 0), the
-    kernel inputs of each distinct shape captured and the refresh timed:
-    ``(result, launches, captured inputs, seconds)``."""
+    kernel inputs of each distinct shape captured with their launches, and
+    the refresh timed: ``(result, launches, capture, seconds)``."""
     from repro_torch import kernels
 
     capture, timers = Capture(), Timers()
@@ -614,16 +754,22 @@ def traced(run, *args, **kw):
     finally:
         timers.close()
         capture.close()
-    return out, launches, capture.inputs, timers.seconds
+    return out, launches, capture, timers.seconds
 
 
 def check_path(label: str, launches: dict, inputs: dict,
-               timed: bool = True, required=FLAT) -> list:
+               timed: bool = True, required=FLAT,
+               shape_launches: dict = None) -> list:
     """Every kernel in ``required`` launched on the path, and every kernel
     the path launched held against its plain version on every distinct
     shape and dtype the path gave it (and in the other of int32 / int64
-    where the values fit); with ``timed``, also measured at the largest.
-    Emits one line per kernel and returns the lines."""
+    where the values fit).  With ``timed``, each kernel is also measured
+    in full at its largest shape and, given ``shape_launches`` (the
+    launches at each shape, ``Capture.launches``, which must add up to
+    the kernel's), timed by graph replay at every shape it launched at,
+    each shape's launches beside it: ``device_ms`` is the sum of launches
+    times graph ms, ``gap_ms`` that of launches times (graph ms - bound
+    ms).  Emits one line per kernel and returns the lines."""
     launched = [n for n in PORTED if launches.get(n, 0) > 0]
     if (any(n not in launched or n not in inputs for n in required)
             or sorted(inputs) != sorted(launched)):
@@ -632,17 +778,43 @@ def check_path(label: str, launches: dict, inputs: dict,
     rows = []
     for name in launched:
         seen = inputs[name]
+        counts = (shape_launches or {}).get(name, {})
+        if (shape_launches is not None
+                and sum(counts.values()) != launches[name]):
+            raise AssertionError(f"{label}: {name}'s launches by shape "
+                                 f"{sum(counts.values())} != {launches[name]}")
         top = max(seen, key=lambda k: sum(a.numel() for a in seen[k]))
-        also = set()
+        also, shapes = set(), []
         for key, args in seen.items():
-            if key != top or not timed:
+            n_at = counts.get(key, 0)
+            if timed and key == top:
+                row = check_and_time(name, args)
+                at = row
+            elif timed and n_at:
+                at = check_and_graph_time(name, args)
+            else:
                 check_exact(name, args)
+                at = None
+            if at is not None and n_at:
+                shapes.append({"dtype": key[0], "shape": at["shape"],
+                               "launches": n_at, "graph_ms": at["graph_ms"],
+                               "bound_ms": at["bound_ms"]})
             other = other_dtype(args)
             if other is not None:
                 check_exact(name, other)
                 also.add(str(other[0].dtype).replace("torch.", ""))
-        row = (check_and_time(name, seen[top]) if timed else
-               {"name": name, "max_abs_err": 0})
+        if not timed:
+            row = {"name": name, "max_abs_err": 0}
+        if shapes:
+            graph = [x["graph_ms"] for x in shapes]
+            row["shapes"] = shapes
+            row["device_ms"] = (None if None in graph else
+                                sum(x["launches"] * x["graph_ms"]
+                                    for x in shapes))
+            row["gap_ms"] = (None if None in graph else
+                             sum(x["launches"] * (x["graph_ms"]
+                                                  - x["bound_ms"])
+                                 for x in shapes))
         row.update(shapes_checked=len(seen), also_exact_as=sorted(also),
                    largest=[list(map(list, top[1])), top[0]])
         emit({"phase": f"kernel_{label}", **row})
@@ -656,15 +828,15 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
     ways.  Upper bound (measured): the host seconds inside the calls that
     reach the card, over wall; each call waits for its results, so the
     card works only inside them.  It holds only when every launch fell
-    inside them, else it is null.  Estimate: every launch costed at the
-    graph-replay time of the run's largest inputs of its kernel (replay
-    hides the per-launch overhead; smaller shapes cost less); null when a
-    graph capture failed."""
+    inside them, else it is null.  Estimate: each kernel's launches at
+    each shape costed at that shape's graph-replay time (``device_ms`` of
+    ``check_path``; replay hides the per-launch overhead); null when a
+    graph capture failed or a row has no per-shape times."""
     total = sum(launches[r["name"]] for r in rows)
     inside = seconds["kernel_calls_launches"]
-    graph = [r["graph_ms"] for r in rows]
-    est = (None if None in graph else
-           sum(launches[r["name"]] * r["graph_ms"] for r in rows) / 1e3)
+    per_kernel = {r["name"]: r.get("device_ms") for r in rows}
+    est = (None if None in per_kernel.values() else
+           sum(per_kernel.values()) / 1e3)
     return {"wall_s": wall_s, **seconds,
             "refresh_host_python_s": seconds["refresh_s"]
             - seconds["kernel_calls_s"],
@@ -672,6 +844,7 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
             "launches_outside_kernel_calls": total - inside,
             "device_busy_upper_share": (seconds["kernel_calls_s"] / wall_s
                                         if inside == total else None),
+            "device_ms_by_kernel": per_kernel,
             "device_busy_graph_est_s": est,
             "device_busy_graph_est_share": (None if est is None
                                             else est / wall_s)}
@@ -887,7 +1060,7 @@ def phase_serving_full(ctx: Context) -> dict:
         run_serving("vec", 4, smoke=False),
         run_serving("scalar", 4, smoke=False))
     full = {"vec": vec, "scalar": scalar}
-    (full["sharded"], _), ctx.launches, inputs, seconds = traced(
+    (full["sharded"], _), ctx.launches, cap, seconds = traced(
         run_serving, "sharded", 4, smoke=False)
     sh = full["sharded"]
     emit({"phase": "serving_full_runs", "launches": ctx.launches, **full})
@@ -903,7 +1076,8 @@ def phase_serving_full(ctx: Context) -> dict:
         raise AssertionError("no cross-shard composites: gcd path idle")
     # each kernel against its plain version on the inputs the sharded run
     # gave it; these times are the kernels line's
-    ctx.kernel_rows = check_path("main_path", ctx.launches, inputs)
+    ctx.kernel_rows = check_path("main_path", ctx.launches, cap.inputs,
+                                 shape_launches=cap.launches)
     return {"parity": sh["parity"], "launches": ctx.launches,
             "main_path_exact": PORTED,
             "sharded_time_split": time_split(sh["wall_s"], seconds,
@@ -930,7 +1104,7 @@ def sharded_batching(arrivals, sizes, vec, vec_trail, label: str,
     ``max_bits``: its counters and logs must equal (narrow) ``kv="vec"``'s,
     every kernel in ``required`` must launch, and each kernel it launched
     is held against its plain version on every shape this run gave it."""
-    (sharded, trail), launches, inputs, seconds = traced(
+    (sharded, trail), launches, cap, seconds = traced(
         run_batching, arrivals, sizes, "slot_vec", kv="sharded",
         max_bits=max_bits)
     same = {k: v for k, v in sharded.items() if k != "wall_s"} == \
@@ -938,7 +1112,8 @@ def sharded_batching(arrivals, sizes, vec, vec_trail, label: str,
     if not same or trail != vec_trail:
         raise AssertionError(f"{label}: kv='sharded' slot machine diverged "
                              f"from kv='vec'")
-    rows = check_path(label, launches, inputs, required=required)
+    rows = check_path(label, launches, cap.inputs, required=required,
+                      shape_launches=cap.launches)
     return {"sharded_wall_s": sharded["wall_s"],
             "sharded_launches": launches,
             "sharded_time_split": time_split(sharded["wall_s"], seconds,
@@ -996,12 +1171,12 @@ def phase_launcher(ctx: Context, extra=(), label: str = "launcher",
     """The user's entry point: all 256 requests complete, every kernel in
     ``required`` launches, and each kernel launched is held against its
     plain version on every shape the run gave it."""
-    out, launches, inputs, seconds = traced(run_launcher, *extra)
+    out, launches, cap, seconds = traced(run_launcher, *extra)
     if out["completed"] != 256:
         raise AssertionError(f"{label} run: {out['completed']} of 256 "
                              f"requests")
-    rows = check_path(label, launches, inputs, timed=False,
-                      required=required)
+    rows = check_path(label, launches, cap.inputs, timed=False,
+                      required=required, shape_launches=cap.launches)
     return {"launches": launches, "launcher_seconds": seconds,
             "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
             **out}
@@ -1028,13 +1203,13 @@ def phase_scale(ctx: Context) -> dict:
     t0 = time.perf_counter()
     ctx.universe = build_scale_universe(**SCALE_SIZE)
     build_s = time.perf_counter() - t0
-    out, ctx.scale_launches, inputs, _ = traced(verify_scale, ctx.universe,
-                                                device=DEVICE)
+    out, ctx.scale_launches, cap, _ = traced(verify_scale, ctx.universe,
+                                             device=DEVICE)
     failures = bench_failures("BENCH_case_scale.json", out)
     if failures:
         raise AssertionError("; ".join(failures))
-    ctx.scale_rows = check_path("scale", ctx.scale_launches, inputs,
-                                required=LIMB)
+    ctx.scale_rows = check_path("scale", ctx.scale_launches, cap.inputs,
+                                required=LIMB, shape_launches=cap.launches)
     return {"matches": "BENCH_case_scale.json", "build_s": build_s,
             "launches": ctx.scale_launches, **out}
 
@@ -1096,9 +1271,8 @@ def phase_scale_full_scan(ctx: Context) -> dict:
             raise AssertionError(f"full scan: hits of prime {q} differ "
                                  f"from the exact host scan")
     host_scan_s = time.perf_counter() - t0
-    live = int((qt > 1).sum())
     b_ms, b_by = bound_ms(limbs.nbytes + 8 * qt.numel() + mask.numel(),
-                          live * int(significant_limbs(lt).sum()))
+                          horner_steps(lt, qt))
     return {"shape": [[n, nl], [qt.numel()]], "launches": launches,
             "max_abs_err": 0, "hits": int(rows.size),
             "false_positives": false_pos, "exact_primes": len(exact),
@@ -1123,13 +1297,14 @@ def phase_serving_wide(ctx: Context) -> dict:
                 raise AssertionError(f"{kv} at {max_bits} bits diverged "
                                      f"from the narrow run")
             walls[kv] = rep["wall_s"]
-        (rep, trail), launches, inputs, seconds = traced(
+        (rep, trail), launches, cap, seconds = traced(
             run_serving, "sharded", 4, smoke=False, max_bits=max_bits)
         if trail != ctx.serving_trail:
             raise AssertionError(f"sharded at {max_bits} bits diverged from "
                                  f"the narrow run")
         label = f"serving_wide_{max_bits}"
-        rows = check_path(label, launches, inputs, required=WIDE_SHARDED)
+        rows = check_path(label, launches, cap.inputs, required=WIDE_SHARDED,
+                          shape_launches=cap.launches)
         walls["sharded"] = rep["wall_s"]
         out[label] = {"parity": list(trail["parity"]), "wall_s": walls,
                       "launches": launches,

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``<build dir>/<name>-<hash>.so`` at first use, by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` (Hopper), then loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is reused.  ``build_all`` starts one
-``nvcc`` per source at once; the kernels' first launch otherwise builds
+``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged one is reused.  ``build_all`` starts one ``nvcc`` per
+source at once; the kernels' first launch otherwise builds
 its own library.  Nothing here runs at import time.
 
 The build directory is ``build/`` beside this module (gitignored).
@@ -113,6 +114,8 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         key = hashlib.sha256(self.source.read_bytes()
+                             + b"".join(h.read_bytes() for h in
+                                        sorted(CSRC.glob("*.cuh")))
                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return build_dir() / f"{self.source.stem}-{key[:16]}.so"
 

@@ -78,14 +78,35 @@ def test_cuda_ops_match_cpu(cuda_device, n, q):
         assert repr(got) == repr(want), fn.__name__
 
 
+#: entries at the edges of the limb kernels' arithmetic: powers of two,
+#: an even composite, the largest primes below 2**31
+ADVERSARIAL_POOL = [2, 4, 6, 2**30, 2_147_483_647, 2_147_483_629]
+
+
+def _adversarial_rows(n_limbs, rng):
+    """All limbs 0xFFFFFFFF, a top nonzero limb at limb 0, a middle limb
+    and limb L - 1, and multiples of the even and largest entries."""
+    top = 1 << (32 * n_limbs)
+    out = [top - 1]
+    for k in sorted({0, n_limbs // 2, n_limbs - 1}):
+        out.append(int(rng.integers(1, 2**32)) << (32 * k)
+                   | int.from_bytes(rng.bytes(4 * k), "little"))
+    out += [2**30 * 2_147_483_647 * 3, 6 * 2_147_483_629 * 5,
+            4 * 2_147_483_647, 2**30]
+    return [v % top for v in out]
+
+
 def _limb_inputs(n, p, n_limbs, seed):
     """Limb rows (products of pool primes, a squared factor, random rows,
     0 and 1) and a pool of distinct primes with one repeat and the pads
-    0 and 1."""
+    0 and 1; from 16 rows and entries on, also the adversarial entries
+    and rows."""
     rng = np.random.default_rng(seed)
     _, primes = kernel_inputs(1, max(p, 8), np.int64, seed)
     live = [int(q) for q in primes if q > 1]
-    pool = np.asarray(live[:max(p - 3, 1)] + [live[0], 0, 1], np.int64)[:p]
+    edge = ADVERSARIAL_POOL if p >= 16 else []
+    pool = np.asarray(live[:max(p - 3 - len(edge), 1)] + edge
+                      + [live[0], 0, 1], np.int64)[:p]
     vals = []
     for i in range(n):
         if i % 4 == 3:
@@ -97,6 +118,9 @@ def _limb_inputs(n, p, n_limbs, seed):
                 v *= int(q)
         vals.append(v * 4 if (v * 4).bit_length() < 32 * n_limbs else v)
     vals[:2] = [0, 1][:n]
+    if n >= 16:
+        rows = _adversarial_rows(n_limbs, rng)
+        vals[2:2 + len(rows)] = rows
     return pack_limbs(vals, n_limbs), pool
 
 
@@ -114,6 +138,48 @@ def test_cuda_limb_kernels_match_plain(cuda_device, n_limbs, n, p):
         assert torch.equal(x, y)
     b = torch.roll(c, 1, dims=0)
     assert torch.equal(gcd.gcd_limbs(c, b, q), ref.gcd_limbs_ref(c, b, q))
+    # every row against every one of the first eight, in the order the
+    # sharded exchange pairs them (runs of pairs sharing their a row)
+    pairs = torch.arange(8 * n, device=cuda_device)
+    ra, rb = c[pairs // 8].contiguous(), c[pairs % min(n, 8)].contiguous()
+    assert torch.equal(gcd.gcd_limbs(ra, rb, q), ref.gcd_limbs_ref(ra, rb, q))
+    assert torch.equal(gcd.gcd_limbs(rb, ra, q), ref.gcd_limbs_ref(rb, ra, q))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_limbs", [3, 32])
+def test_cuda_limb_kernels_on_large_pools(cuda_device, n_limbs):
+    """Pools wider than the kernels hold at once: the mask takes 9000
+    entries in column pieces of 4096 (one row per tile) and the gcd in
+    chunks reloaded per pair; both equal their plain versions, runs of
+    pairs sharing a row included."""
+    rng = np.random.default_rng(n_limbs)
+    sieve = np.ones(1 << 17, dtype=bool)
+    sieve[:2] = False
+    for i in range(2, 363):
+        sieve[i * i::i] = False
+    primes = np.nonzero(sieve)[0]
+    pool = np.concatenate([rng.choice(primes, size=8988, replace=False),
+                           ADVERSARIAL_POOL, [0, 1, 0, 1, 0, 1]])
+    pool = rng.permutation(pool).astype(np.int64)
+    live = [int(x) for x in pool if x > 1]
+    vals = []
+    for _ in range(300):
+        v = 1
+        for q in rng.choice(live, size=int(rng.integers(1, 12))):
+            if (v * int(q)).bit_length() < 32 * n_limbs:
+                v *= int(q)
+        vals.append(v)
+    vals[:2] = [0, 1]
+    vals[2:2 + 8] = _adversarial_rows(n_limbs, rng)
+    c = torch.from_numpy(pack_limbs(vals, n_limbs)).to(cuda_device)
+    q = torch.from_numpy(pool).to(cuda_device)
+    assert torch.equal(factorize.divisibility_mask_limbs(c, q),
+                       ref.divisibility_mask_limbs_ref(c, q))
+    pairs = torch.arange(4 * 300, device=cuda_device)
+    ra, rb = c[pairs // 4].contiguous(), c[pairs % 300].contiguous()
+    assert torch.equal(gcd.gcd_limbs(ra, rb, q), ref.gcd_limbs_ref(ra, rb, q))
     torch.cuda.synchronize()
 
 

@@ -279,24 +279,58 @@ def test_chip_smoke_checks_every_shape_a_path_gave(monkeypatch):
 def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
     """The measured upper bound on the card's busy share is the kernel
     calls' seconds over wall only while every launch fell inside those
-    calls; the graph-replay figure is an estimate, null without a graph
-    time."""
+    calls; the graph-replay figure is an estimate from each kernel's
+    launches at each shape times that shape's graph time, null without a
+    graph time."""
     chip_smoke = _chip_smoke()
     launches = {name: 3 for name in chip_smoke.FLAT}
-    rows = [{"name": name, "graph_ms": 2.0} for name in chip_smoke.FLAT]
+    rows = [{"name": name, "device_ms": 6.0} for name in chip_smoke.FLAT]
     seconds = {"refresh_s": 4.0, "kernel_calls_s": 1.0,
                "kernel_calls_launches": 9}
     split = chip_smoke.time_split(10.0, seconds, launches, rows)
     assert split["device_busy_upper_share"] == 0.1
     assert split["launches_outside_kernel_calls"] == 0
     assert split["device_busy_graph_est_s"] == pytest.approx(0.018)
+    assert split["device_ms_by_kernel"] == dict.fromkeys(chip_smoke.FLAT,
+                                                         6.0)
     assert split["refresh_host_python_s"] == 3.0
     split = chip_smoke.time_split(
         10.0, dict(seconds, kernel_calls_launches=8), launches,
-        rows[:2] + [{"name": "gcd", "graph_ms": None}])
+        rows[:2] + [{"name": "gcd", "device_ms": None}])
     assert split["device_busy_upper_share"] is None
     assert split["launches_outside_kernel_calls"] == 1
     assert split["device_busy_graph_est_s"] is None
+
+
+def test_chip_smoke_times_every_shape_a_path_launched(monkeypatch):
+    """``check_path`` with the launches at each shape times every shape
+    that launched (not only the largest), sums launches x graph ms into
+    the kernel's ``device_ms`` and launches x (graph - bound) into
+    ``gap_ms``, skips shapes that never launched, and fails when the
+    launches by shape do not add up to the kernel's count."""
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    inputs = _captured_inputs()
+    keys = list(inputs["gcd"])
+    counts = {"divisibility_mask": {k: 2 for k in inputs["divisibility_mask"]},
+              "factorize_squarefree": {k: 2 for k in
+                                       inputs["factorize_squarefree"]},
+              "gcd": {keys[0]: 3, keys[1]: 0}}
+    launches = {"divisibility_mask": 2, "factorize_squarefree": 2, "gcd": 3}
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, **kw: 2.0)
+    monkeypatch.setattr(chip_smoke, "loop_ms", lambda fn, **kw: 1.0)
+    rows = chip_smoke.check_path("t", launches, inputs,
+                                 shape_launches=counts)
+    by = {r["name"]: r for r in rows}
+    assert [s["launches"] for s in by["gcd"]["shapes"]] == [3]
+    assert by["gcd"]["device_ms"] == 6.0
+    assert by["gcd"]["gap_ms"] == pytest.approx(
+        3 * (2.0 - by["gcd"]["shapes"][0]["bound_ms"]))
+    assert by["divisibility_mask"]["device_ms"] == 4.0
+    counts["gcd"][keys[1]] = 1
+    with pytest.raises(AssertionError, match="launches by shape"):
+        chip_smoke.check_path("t", launches, inputs, shape_launches=counts)
 
 
 class _Event:
@@ -354,9 +388,11 @@ def test_chip_smoke_full_scan_checks_on_cpu(monkeypatch):
 
 def test_chip_smoke_limb_bound_counts_needed_steps():
     """The limb kernels' operation counts take only the steps these
-    inputs need: Horner over each row's significant limbs (none for a
-    zero row), short division over the residual's, the gcd's b test only
-    where a is divisible and its multiply over the product's limbs."""
+    inputs need: Montgomery steps over each row's significant limbs (none
+    for a zero row, none for an entry settled by its power of two), short
+    division over the residual's, the gcd's full test on the shorter or
+    the cached side, the other side only where that one is divisible, and
+    its multiply over the product's limbs."""
     chip_smoke = _chip_smoke()
     from repro_torch.kernels import ref
 
@@ -367,17 +403,42 @@ def test_chip_smoke_limb_bound_counts_needed_steps():
     a, b = rows(0, 1, 6, 3 << 40), rows(0, 1, 3, 1 << 41)
     pool = torch.tensor([2, 3, 0, 1], dtype=torch.int64)
     assert chip_smoke.significant_limbs(a).tolist() == [0, 1, 1, 2]
+    assert chip_smoke.trailing_zero_bits(a).tolist() == [128, 0, 1, 40]
     mask = ref.divisibility_mask_limbs_ref(a, pool)
-    # Horner: 2 live primes x (0 + 1 + 1 + 2) limbs
+    # Montgomery steps: 3 (odd part 3) x (0 + 1 + 1 + 2) limbs; 2 is a
+    # power of two, settled by the trailing zero bits alone
     assert chip_smoke.limb_work("divisibility_mask_limbs", (a, pool),
-                                (mask,))[1] == 8
+                                (mask,))[1] == 4
     # + divisions: 6 by 2 then 3 (1 + 1), 3 * 2**40 by 2 then 3 (2 + 2)
     outs = ref.factorize_limbs_ref(a, pool)
-    assert chip_smoke.limb_work("factorize_limbs", (a, pool), outs)[1] == 14
-    # + b tests: 2 x 0 + 0 x 1 + 2 x 1 + 2 x 2 limbs; + multiplies:
-    # 2 common primes for the zero pair, 1 for each of the last two
+    assert chip_smoke.limb_work("factorize_limbs", (a, pool), outs)[1] == 10
+    # + b tests by 3 where a is divisible: 0 + 1 + 2 limbs; + multiplies:
+    # 2 common entries for the zero pair, 1 for each of the last two
     g = ref.gcd_limbs_ref(a, b, pool)
-    assert chip_smoke.limb_work("gcd_limbs", (a, b, pool), (g,))[1] == 18
+    assert chip_smoke.limb_work("gcd_limbs", (a, b, pool), (g,))[1] == 11
+    # each pair tests its shorter side first: 3 * 2**96 (4 limbs) against
+    # 3 (1 limb) tests 3 against all of 3, 5, 7 (3 steps), then only 3
+    # against the long side (4 steps), then multiplies once; a-first would
+    # take 3 x 4 + 1 steps
+    a, b = rows(3 << 96), rows(3)
+    pool = torch.tensor([3, 5, 7], dtype=torch.int64)
+    g = ref.gcd_limbs_ref(a, b, pool)
+    assert chip_smoke.limb_work("gcd_limbs", (a, b, pool), (g,))[1] == 8
+    assert chip_smoke.limb_work("gcd_limbs", (b, a, pool), (g,))[1] == 8
+    # a row repeated on consecutive pairs is tested in full once: 6 against
+    # 3, 5, 7 (3 steps), then only 3 against each b (1 step each), and one
+    # multiply for the common 3 of the last pair
+    a, b = rows(6, 6, 6), rows(5, 7, 3)
+    g = ref.gcd_limbs_ref(a, b, pool)
+    assert chip_smoke.gcd_first_sides(a, b)[1].tolist() == [True, False,
+                                                           False]
+    assert chip_smoke.limb_work("gcd_limbs", (a, b, pool), (g,))[1] == 7
+    # even entries: 12 = 4 x 3 runs a pass only on the rows with at least
+    # 2 trailing zero bits (12: 1 limb, 7 * 2**30: 2 limbs; not 6, and the
+    # zero row needs none); 2**30 never does
+    a = rows(12, 6, 2**30 * 7, 0)
+    pool = torch.tensor([12, 2**30], dtype=torch.int64)
+    assert chip_smoke.horner_steps(a, pool) == 1 + 2
 
 
 def test_chip_smoke_wide_paths_name_their_kernels(monkeypatch):

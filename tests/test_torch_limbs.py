@@ -182,6 +182,303 @@ def test_plain_limb_versions_on_empty_and_ragged_input():
 
 
 # --------------------------------------------------------------------------- #
+# the limb kernels' arithmetic (csrc/limb_mod.cuh), modelled in Python ints   #
+# --------------------------------------------------------------------------- #
+# Each function below is written as the CUDA source writes it, with 32- and
+# 64-bit wraparound made explicit, so that the arithmetic the card runs is
+# held against ``%`` here; the kernels themselves run only on the card.
+
+_M32, _M64 = (1 << 32) - 1, (1 << 64) - 1
+_ZERO_ROW_TZ, _NEVER_TZ = _M32 - 1, _M32
+
+#: the pool entries the card checks add: small and large powers of two, an
+#: even composite, the largest prime below 2**31 and its neighbours
+ADVERSARIAL_POOL = (2, 4, 6, 2**30, 2_147_483_647, 2_147_483_629)
+
+
+def _entry_constants(p):
+    """``pfcs::entry_constants``: {q, -q**-1 mod 2**32, t, p}; an entry
+    <= 1 gets t = 2**32 - 1, above every row's trailing zero count."""
+    if p <= 1:
+        return (0, 0, _NEVER_TZ, 0)
+    pp = p & _M32
+    t = (pp & -pp).bit_length() - 1          # __ffs(pp) - 1
+    q = pp >> t
+    inv = q
+    for _ in range(4):
+        inv = (inv * ((2 - q * inv) & _M32)) & _M32
+    return (q, -inv & _M32, t, pp)
+
+
+def _redc_step(s, limb, q, qneg_inv):
+    """``pfcs::redc_step``: REDC(s + limb) with no final correction."""
+    t = (s + limb) & _M64
+    m = ((t & _M32) * qneg_inv) & _M32
+    return ((t + m * q) & _M64) >> 32 & _M32
+
+
+def _fold_limb_slice(words, k0, n, tz):
+    """``pfcs::fold_limb_slice`` for the 32 lanes' words of one slice."""
+    nz = [k for k, v in enumerate(words) if v]
+    if not nz:
+        return n, tz
+    n = k0 + nz[-1] + 1
+    if tz == _ZERO_ROW_TZ:
+        low = words[nz[0]]
+        tz = 32 * (k0 + nz[0]) + (low & -low).bit_length() - 1
+    return n, tz
+
+
+def _row_counts(row):
+    n, tz = 0, _ZERO_ROW_TZ
+    for k0 in range(0, len(row), 32):
+        n, tz = _fold_limb_slice(list(row[k0:k0 + 32]), k0, n, tz)
+    return n, tz
+
+
+def _residue(k, row, n):
+    """The residue ``pfcs::residues4`` takes for one entry: the steps run
+    for every entry, and stay <= q + 1 (<= 1 for q of 0 or 1)."""
+    q, qinv = k[0], k[1]
+    s = 0
+    for j in range(n):
+        s = _redc_step(s, row[j], q, qinv)
+        assert s <= (q + 1 if q > 1 else 1)
+    return s
+
+
+def _entry_settles(k, s, tz):
+    """``pfcs::entry_settles``: for q of 1 the residue is 0 or 1 = q."""
+    q, _, t, _ = k
+    return t <= tz and (s == 0 or s == q)
+
+
+def _entry_divides(k, row, n, tz):
+    """``pfcs::entry_divides``: the one-entry test of the gcd's second
+    side; every intermediate ``s`` stays <= q + 1."""
+    q, qinv, t, _ = k
+    if t > tz:
+        return False
+    if q == 1:
+        return True
+    s = 0
+    for j in range(n):
+        s = _redc_step(s, row[j], q, qinv)
+        assert s <= q + 1
+    return s == 0 or s == q
+
+
+def _mul_warp(g, q):
+    """``mul_warp`` of gcd_limbs.cu: g <- g * q mod 2**(32 L), 32 limbs
+    (lanes) at a time, the carries rippled by one addition of the
+    generate and propagate masks."""
+    below = 0
+    for k0 in range(0, len(g), 32):
+        v = [g[k] * q if k < len(g) else 0 for k in range(k0, k0 + 32)]
+        hi = [x >> 32 for x in v]
+        up = [below] + hi[:31]
+        sums = [(x & _M32) + u for x, u in zip(v, up)]
+        gen = sum(1 << lane for lane, x in enumerate(sums) if x >> 32)
+        prop = sum(1 << lane for lane, x in enumerate(sums)
+                   if x & _M32 == _M32)
+        ripple = gen + (gen | prop)
+        carries = (ripple & _M32) ^ gen ^ (gen | prop)
+        for lane in range(32):
+            if k0 + lane < len(g):
+                g[k0 + lane] = ((sums[lane] & _M32)
+                                + (carries >> lane & 1)) & _M32
+        below = (hi[31] + (ripple >> 32)) & _M32
+
+
+def _divmask_model(limbs, pool):
+    consts = [_entry_constants(int(p)) for p in pool]
+    out = np.zeros((len(limbs), len(pool)), dtype=bool)
+    for i, row in enumerate(limbs.tolist()):
+        n, tz = _row_counts(row)
+        for j, k in enumerate(consts):
+            out[i, j] = _entry_settles(k, _residue(k, row, n), tz)
+    return out
+
+
+def _gcd_model(a, b, pool):
+    """gcd_limbs.cu over the pairs in order, as one warp takes them: the
+    side whose mask is cached (a row equal to the last one tested in
+    full), else a side equal to the previous pair's, else the side with
+    fewer significant limbs, is tested against every entry; the other
+    side only where it divides; common entries multiplied in pool order
+    by the warp."""
+    consts = [_entry_constants(int(p)) for p in pool]
+    out = np.zeros_like(a)
+    cached, mask, prev = None, None, (None, None)
+    for i, (ra, rb) in enumerate(zip(a.tolist(), b.tolist())):
+        (na, tza), (nb, tzb) = _row_counts(ra), _row_counts(rb)
+        if cached is not None and cached in (ra, rb):
+            a_first = ra == cached
+        else:
+            a_first = ra == prev[0] or (rb != prev[1] and na <= nb)
+            first = (ra, na, tza) if a_first else (rb, nb, tzb)
+            cached = first[0]
+            mask = [_entry_settles(k, _residue(k, *first[:2]), first[2])
+                    for k in consts]
+        second = (rb, nb, tzb) if a_first else (ra, na, tza)
+        prev = (ra, rb)
+        g = [1] + [0] * (len(ra) - 1)
+        for k, divides_first in zip(consts, mask):
+            if divides_first and _entry_divides(k, *second):
+                _mul_warp(g, k[3])
+        out[i] = g
+    return out
+
+
+def _x_of(row):
+    return sum(v << (32 * k) for k, v in enumerate(row))
+
+
+def test_montgomery_constants_invert_every_odd_part():
+    """-q**-1 mod 2**32 by four Newton rounds, for odd parts across
+    [3, 2**31), and the split p = 2**t * q of even entries."""
+    rng = np.random.default_rng(7)
+    ps = [int(p) for p in rng.integers(2, 2**31, size=20_000)]
+    for p in ps + list(ADVERSARIAL_POOL) + [3, 5, 2**31 - 1, 2**31 - 2]:
+        q, qinv, t, pp = _entry_constants(p)
+        assert pp == p and q << t == p and q & 1
+        assert (q * qinv) & _M32 == _M32            # q * -q**-1 = -1
+    assert _entry_constants(0) == _entry_constants(1) == (0, 0, _M32, 0)
+    assert _entry_constants(2**30)[:3:2] == (1, 30)
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 6, 9, 2**30, 2**31 - 1,
+                               2_147_483_629, 3 * 2**29])
+def test_montgomery_model_on_edge_limbs(p):
+    """Every row of 1 to 3 limbs from {0, 1, 2**32 - 1}, and rows whose
+    top or lowest nonzero limb is the last, a middle or the first:
+    the model's answer equals ``x % p == 0``, and its residue is
+    x * 2**(-32 n) mod q after the row's n significant limbs."""
+    edge = (0, 1, _M32)
+    rows = [list(r) for width in (1, 2, 3)
+            for r in np.array(np.meshgrid(*[edge] * width)).T.reshape(-1,
+                                                                     width)]
+    rows += [[0] * k + [v] + [0] * (4 - k) for k in range(5)
+             for v in (1, p, _M32, p << 1 & _M32)]
+    rows += [[_M32] * 32, [0] * 31 + [p], [p] + [0] * 31]
+    k = _entry_constants(p)
+    q = k[0]
+    for row in rows:
+        row = [int(v) for v in row]
+        x = _x_of(row)
+        n, tz = _row_counts(row)
+        assert n == -(-x.bit_length() // 32)
+        assert tz == ((x & -x).bit_length() - 1 if x else _ZERO_ROW_TZ)
+        assert _entry_divides(k, row, n, tz) == (x % p == 0)
+        assert _entry_settles(k, _residue(k, row, n), tz) == (x % p == 0)
+        if q > 1:
+            s = 0
+            for j in range(n):
+                s = _redc_step(s, row[j], q, k[1])
+            assert s % q == x * pow(2, -32 * n, q) % q
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_montgomery_model_on_random_draws(seed):
+    """25,000 seeded draws per seed (10**5 in all): entries across [0,
+    2**31) (odd, even, powers of two, 0 and 1), values of 1 to 4 limbs,
+    half of them multiples of the entry; both of the model's tests (the
+    one-entry loop and residue-then-settle) equal ``%``."""
+    rng = np.random.default_rng(1000 + seed)
+    n_draws = 25_000
+    kind = rng.integers(0, 4, size=n_draws)
+    ps = rng.integers(0, 2**31, size=n_draws)
+    ps = np.where(kind == 1, ps & ~np.int64(0xFF), ps)          # even
+    ps = np.where(kind == 2, 1 << rng.integers(0, 31, size=n_draws), ps)
+    ps = np.where(kind == 3, rng.integers(0, 64, size=n_draws), ps)
+    widths = rng.integers(1, 5, size=n_draws)
+    words = rng.integers(0, 2**32, size=(n_draws, 4), dtype=np.uint64)
+    hits = 0
+    for i in range(n_draws):
+        p = int(ps[i])
+        x = _x_of([int(w) for w in words[i, :widths[i]]])
+        if i % 2 and p > 1:
+            x = (x * p) % (1 << (32 * 4))
+        row = [(x >> (32 * k)) & _M32 for k in range(4)]
+        n, tz = _row_counts(row)
+        k = _entry_constants(p)
+        want = p > 1 and x % p == 0
+        assert _entry_divides(k, row, n, tz) == want, (p, x)
+        assert _entry_settles(k, _residue(k, row, n), tz) == want, (p, x)
+        hits += want
+    assert hits > n_draws // 3
+
+
+def _adversarial_limbs(n_limbs, pool, rng, n=24):
+    """Rows the card checks add: all limbs 0xFFFFFFFF, rows whose top
+    nonzero limb is the first, a middle one or the last, multiples of
+    the adversarial entries, zero and value-1 rows."""
+    L = n_limbs
+    rows = [[_M32] * L, [0] * L, [1] + [0] * (L - 1)]
+    for top in sorted({0, L // 2, L - 1}):
+        rows.append([int(v) for v in rng.integers(0, 2**32, size=top)]
+                    + [int(rng.integers(1, 2**32))] + [0] * (L - 1 - top))
+    for p in ADVERSARIAL_POOL:
+        x = p * int(rng.integers(1, 2**31)) << int(rng.integers(0, 3))
+        rows.append([(x >> (32 * k)) & _M32 for k in range(L)])
+    while len(rows) < n:
+        x = math.prod(int(q) for q in rng.choice(pool[pool > 1], size=3))
+        x %= 1 << (32 * L)
+        rows.append([(x >> (32 * k)) & _M32 for k in range(L)])
+    return np.asarray(rows, dtype=np.int64)
+
+
+@pytest.mark.parametrize("n_limbs", [1, 4, 32, 33, 64])
+def test_warp_multiply_model_matches_big_ints(n_limbs):
+    """The warp's multiply equals g * q mod 2**(32 L) on values built to
+    ripple carries: each limb, with odds 1/2, is chosen so that its low
+    product word plus the high word from below is 0xFFFFFFFF (a carry
+    coming in must pass on), and across the 32-limb slices."""
+    rng = np.random.default_rng(n_limbs)
+    top = 1 << (32 * n_limbs)
+    passed = 0
+    for _ in range(400):
+        q = int(rng.integers(1, 2**30)) * 2 + 1
+        q_inv = pow(q, -1, 1 << 32)
+        g, hi = [], 0
+        for _ in range(n_limbs):
+            v = (int(rng.integers(0, 2**32)) if rng.random() < 0.5
+                 else (_M32 - hi) * q_inv & _M32)
+            g.append(v)
+            hi = v * q >> 32
+        want = _x_of(g) * q % top
+        _mul_warp(g, q)
+        assert _x_of(g) == want
+        passed += 1
+    assert passed == 400
+
+
+@pytest.mark.parametrize("n_limbs", [2, 3, 8, 32])
+def test_kernel_models_match_plain_versions(n_limbs):
+    """The whole limb mask and limb gcd as the CUDA kernels compute them
+    (significant limbs only, the cached or the shorter side first, lazy
+    Montgomery, the product by the warp's carry ripple) equal the plain
+    versions on the adversarial entries and rows, duplicates, pads and
+    repeated rows included."""
+    rng = np.random.default_rng(n_limbs)
+    pool = np.asarray(list(ADVERSARIAL_POOL) + [3, 5, 7, 1_000_003, 13, 13,
+                                                0, 1, 0], dtype=np.int64)
+    pool = rng.permutation(pool)
+    a = _adversarial_limbs(n_limbs, pool, rng)
+    b = np.roll(a, 5, axis=0)
+    b[1] = 0                                          # a zero pair
+    b[3] = a[3] * 0                                   # a zero side only
+    a[10:14] = a[9]                                   # a row repeated
+    b[12] = a[9]                                      # a cached b side
+    np.testing.assert_array_equal(
+        _divmask_model(a, pool),
+        tref.divisibility_mask_limbs_ref(_t(a), _t(pool)).numpy())
+    np.testing.assert_array_equal(
+        _gcd_model(a, b, pool),
+        tref.gcd_limbs_ref(_t(a), _t(b), _t(pool)).numpy())
+
+
+# --------------------------------------------------------------------------- #
 # ops wrappers and the exact dispatchers vs repro.kernels.ops                  #
 # --------------------------------------------------------------------------- #
 
