@@ -16,16 +16,27 @@ went, ``sharded_time_split``):
                  ``nvidia-smi``'s name and power limit (``null`` with the
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
-  build          the six kernels, with ``-Xptxas -v``'s register,
-                 shared-memory and spill lines;
+  build          the six kernels and an empty one, with ``-Xptxas -v``'s
+                 register, shared-memory and spill lines (for the flat
+                 factorization and gcd under the name of each template
+                 instance), and the launch floor: the graph-replay time
+                 of the empty kernel launched through the same ``ctypes``
+                 binding (``launch_floor_ms``, repeated in every kernel
+                 line);
   kernel_check   each kernel against its plain PyTorch version on the card
                  at registry-refresh sizes: the flat kernels in int32 and
-                 int64, the limb kernels at 2, 3, 8 and 32 limbs with zero,
-                 value-1 and non-squarefree rows, pad primes, ragged
-                 shapes and the edges of their arithmetic (even entries,
-                 powers of two, the largest primes below 2**31, all-ones
-                 rows, rows whose top limb is the first, a middle or the
-                 last) (exact);
+                 int64, also on the edges of their arithmetic (the
+                 largest values of each type, powers of two, the largest
+                 primes below 2**31, large int64 primes, a pool with a
+                 duplicate entry and entries with their multiples, gcd
+                 chains of consecutive Fibonacci pairs, zeros, equal
+                 sides and sides of 1, arrays off their 16-byte
+                 alignment), the limb kernels at 2, 3, 8 and 32 limbs
+                 with zero, value-1 and non-squarefree rows, pad primes,
+                 ragged shapes and the edges of their arithmetic (even
+                 entries, powers of two, the largest primes below 2**31,
+                 all-ones rows, rows whose top limb is the first, a
+                 middle or the last) (exact);
   serving_full   ``case_serving``'s full configuration through
                  ``ServingEngine`` with ``kv="vec"``, ``"scalar"`` and
                  ``"sharded"`` (two shards): equal parity counters, every
@@ -144,6 +155,22 @@ SCALE_SIZE = dict(n_chains=10_000, depth=100, n_verify_chains=24)
 FULL_SCAN_EXACT_PRIMES = 8
 #: rows per chunk of the plain version in ``scale_full_scan``
 FULL_SCAN_CHUNK = 1 << 16
+
+
+#: the launch floor measured in the build phase (ms), in every kernel line
+LAUNCH_FLOOR_MS = None
+
+
+def launch_floor_kernel():
+    """The empty kernel of ``csrc/launch_floor.cu`` behind the kernels'
+    own ``ctypes`` binding; not a kernel of the port (not in ``KERNELS``)."""
+    import ctypes
+
+    from repro_torch.kernels.cuda import CudaKernel
+
+    return CudaKernel("launch_floor", "launch_floor.cu", "pfcs_launch_floor",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                      register=False)
 
 
 def emit(obj) -> None:
@@ -619,7 +646,8 @@ def check_and_time(name: str, args) -> dict:
            "max_abs_err": err, **timed(lambda: kern(*args)),
            "plain_ms": loop_ms(lambda: plain(*args), max_reps=20),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "library_wrapper_ms": None}
+           "library_ms": None, "library_wrapper_ms": None,
+           "launch_floor_ms": LAUNCH_FLOOR_MS}
     if name == "gcd":
         lib = timed(lambda: torch.gcd(*args))
         row["library_ms"] = lib["graph_ms"]
@@ -804,7 +832,8 @@ def check_path(label: str, launches: dict, inputs: dict,
                 check_exact(name, other)
                 also.add(str(other[0].dtype).replace("torch.", ""))
         if not timed:
-            row = {"name": name, "max_abs_err": 0}
+            row = {"name": name, "max_abs_err": 0,
+                   "launch_floor_ms": LAUNCH_FLOOR_MS}
         if shapes:
             graph = [x["graph_ms"] for x in shapes]
             row["shapes"] = shapes
@@ -1018,23 +1047,104 @@ def phase_device(ctx: Context) -> dict:
             "nvidia_smi_error": smi_error}
 
 
+#: the kernels whose compiled functions the build line names (the
+#: ``-Xptxas -v`` lines of each template instance follow its name)
+REDESIGNED = ("factorize_squarefree", "gcd")
+
+
 def phase_build(ctx: Context) -> dict:
+    global LAUNCH_FLOOR_MS
     from repro_torch import kernels
 
     if sorted(kernels.KERNELS) != sorted(PORTED):
         raise AssertionError(f"kernels {sorted(kernels.KERNELS)} != "
                              f"{sorted(PORTED)}")
-    nvcc_s = kernels.build_all()
+    floor = launch_floor_kernel()
+    nvcc_s = kernels.build_all(extra=[floor])
+    dev = torch.device(DEVICE)
+    LAUNCH_FLOOR_MS = graph_ms(lambda: floor.launch(dev, 1, 256))
     return {"nvcc_seconds": nvcc_s,
+            "launch_floor_ms": LAUNCH_FLOOR_MS,
+            "launch_floor": "empty kernel, 1 block of 256 threads, "
+                            "csrc/launch_floor.cu through ctypes, graph "
+                            "replay",
             "ptxas": {name: [ln.strip() for ln in
                              k.build_log().splitlines()
-                             if "registers" in ln or "spill" in ln]
+                             if "registers" in ln or "spill" in ln
+                             or (name in REDESIGNED
+                                 and "entry function" in ln)]
                       for name, k in kernels.KERNELS.items()}}
+
+
+def fibonacci_pairs(limit: int) -> list:
+    """Consecutive Fibonacci pairs (F_k, F_k+1) with F_k+1 <= ``limit``:
+    Euclid's worst case."""
+    out, a, b = [], 1, 2
+    while b <= limit:
+        out.append((a, b))
+        a, b = b, a + b
+    return out
+
+
+#: large int64 primes of the flat checks
+BIG_PRIMES = (1_000_003, 1_000_033, 1_000_037, 1_000_039, 999_983, 999_979)
+
+
+def adversarial_flat_inputs(dtype, device=None):
+    """Flat inputs at the edges of the kernels' arithmetic, each valid in
+    ``dtype``: ``{"factorize": [(composites, pool), ...], "gcd": [(a, b),
+    ...]}``.  Pools: the type's largest values, powers of two (2, 2**30,
+    2**62), the largest primes below 2**31, large int64 primes, and an
+    out-of-contract pool (a duplicate entry, 2 and 4, 3 and 9) whose
+    residuals stop being divisible, so the floor division runs; rows
+    keep the product of their dividing entries inside the type, where
+    the plain version's residual is defined.  Gcd: consecutive Fibonacci
+    pairs to the type's top (both ways round), 0 on either side and both,
+    equal sides, sides of 1, powers of two and the largest values, also
+    one element off the arrays' 16-byte alignment.  Tensors on ``device``
+    (default ``DEVICE``); the tests take the same inputs."""
+    top = 2**31 - 1 if dtype == torch.int32 else 2**63 - 1
+    cases = [
+        ([0, 1, top, 2**30, 105, 2**30 - 1, 210, 2**31 - 2,
+          2_147_483_629, 65_521 * 32_749],
+         [2_147_483_647, 2**30, 3, 5, 7, 0, 1, 2_147_483_629, 65_521]),
+        ([2, 4, 8, 12, 36, 72, 1, 0, 2**30, 6, 2**31 - 1, 81],
+         [2, 4, 2, 3, 3, 9, 0, 1]),
+    ]
+    if dtype == torch.int64:
+        m61, big = 2**61 - 1, list(BIG_PRIMES)
+        cases.append((
+            [top, 2**62, 3 * m61, big[0] * big[1] * big[2],
+             big[3] * big[4] * 2**20, 0, 1, 2**62 + 2, m61 * 2,
+             2_147_483_647 * 2_147_483_629],
+            big + [m61, 2**62, 3, 0, 1, 2_147_483_647, 2_147_483_629]))
+    fib = fibonacci_pairs(top)
+    pairs = fib + [(b, a) for a, b in fib] + [
+        (0, 7), (7, 0), (0, 0), (top, top), (top, 1), (1, top), (1, 1),
+        (2**30, 2**12 * 3), (top - 1, (top - 1) // 2), (2**30, 0)]
+    if dtype == torch.int64:
+        pairs += [(2**62, 2**60 * 5), (2**61 - 1, (2**61 - 1) * 3),
+                  (top, 7 * 73), (2**62, 1), (2**40 * 3, 2**35 * 9)]
+
+    def t(x):
+        return torch.tensor(x, dtype=dtype, device=device or DEVICE)
+
+    a, b = (t(list(x)) for x in zip(*pairs))
+    return {"factorize": [(t(c), t(p)) for c, p in cases],
+            "gcd": [(a, b), (b, a), (a[1:], b[1:])]}
 
 
 def phase_kernel_check(ctx: Context) -> dict:
     rng = np.random.default_rng(0)
     checked = []
+    for dtype in (torch.int32, torch.int64):
+        adv = adversarial_flat_inputs(dtype)
+        for args in adv["factorize"]:
+            check_exact("divisibility_mask", args)
+            check_exact("factorize_squarefree", args)
+        for args in adv["gcd"]:
+            check_exact("gcd", args)
+        checked.append(f"adversarial flat:{str(dtype).replace('torch.', '')}")
     for dtype in (torch.int32, torch.int64):
         inputs = synthetic_inputs(dtype, rng)
         for name, args in inputs.items():
@@ -1357,7 +1467,8 @@ def report(ctx: Context) -> None:
             "max_abs_err": r["max_abs_err"],
             "ms": r["graph_ms"], "graph_ms": r["graph_ms"], "wrapper_ms": r["wrapper_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launch_floor_ms": r["launch_floor_ms"]})
     print(ctx.smi or f"{ctx.kind}, power.limit not measured (nvidia-smi "
                      f"failed)", flush=True)
     emit({"kernels": rows})

@@ -2,9 +2,10 @@
 
 A port of ``repro`` that mirrors its module paths one for one
 (``repro_torch/x/y.py`` is held against ``repro/x/y.py``).  Placement
-state stays in numpy on the host; the three flat discovery kernels
-(divisibility mask, squarefree factorization, gcd) are CUDA C++ built
-for ``sm_90a`` at first use (``kernels/csrc``).  Entry points take a
+state stays in numpy on the host; the six discovery kernels (the
+divisibility mask, the squarefree factorization and the gcd, each flat
+and over 32-bit limbs for wide registries) are CUDA C++ built for
+``sm_90a`` at first use (``kernels/csrc``).  Entry points take a
 ``device`` that defaults to ``"cuda"``; pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead.  See ROADMAP.md for what is
 still to port.

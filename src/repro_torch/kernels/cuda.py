@@ -99,10 +99,12 @@ class _Build(NamedTuple):
 
 
 class CudaKernel:
-    """One ``csrc`` source, its C entry point and its launch count."""
+    """One ``csrc`` source, its C entry point and its launch count.  A
+    kernel of the port joins ``KERNELS``; a measuring aid that the port
+    never launches (``register=False``) does not."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, register: bool = True):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
@@ -110,7 +112,8 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._err = None
-        KERNELS[name] = self
+        if register:
+            KERNELS[name] = self
 
     def library_path(self) -> Path:
         key = hashlib.sha256(self.source.read_bytes()
@@ -188,13 +191,13 @@ def _finish(builds: Iterable[Optional[_Build]]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
-def build_all() -> float:
-    """Build every kernel's library, one ``nvcc`` per source started
-    together; returns the seconds it took."""
+def build_all(extra: Iterable["CudaKernel"] = ()) -> float:
+    """Build every kernel's library, and those of ``extra``, one ``nvcc``
+    per source started together; returns the seconds it took."""
     t0 = time.perf_counter()
     builds: List[Optional[_Build]] = []
     try:
-        for k in KERNELS.values():
+        for k in [*KERNELS.values(), *extra]:
             builds.append(k.start_build())
         _finish(builds)
     finally:

@@ -36,7 +36,8 @@ def main(argv=None):
                     default="vec",
                     help="paged-KV backend (serving/engine.py factory)")
     ap.add_argument("--max-bits", type=int, default=62,
-                    help="registry chunk width (> 63 is not ported yet)")
+                    help="registry chunk width; > 63 selects multi-limb "
+                         "wide mode (DESIGN.md §11)")
     ap.add_argument("--front-end", choices=("slots", "engine"),
                     default="slots",
                     help="continuous-batching SlotMachine (default) or "

@@ -7,7 +7,7 @@ and the sharded serving path, narrow and wide, on ``"cuda"`` against
 (this file imports no JAX, so it runs where only the port is
 installed)."""
 
-from torch_parity import kernel_inputs, registry_arrays
+from torch_parity import chip_smoke, kernel_inputs, registry_arrays
 
 import numpy as np
 import pytest
@@ -76,6 +76,98 @@ def test_cuda_ops_match_cpu(cuda_device, n, q):
                      (ops.gcd_batch, (comps, b))):
         got, want = fn(*args, device="cuda"), fn(*args, device="cpu")
         assert repr(got) == repr(want), fn.__name__
+
+
+#: the shapes the sharded refresh of ``case_batching``'s full trace gives
+#: the flat factorization (rows, pool entries) and the gcd (pairs)
+BATCHING_FULL_FACTORIZE = [
+    (256, 512), (256, 1024), (512, 1024), (512, 1536), (768, 1536),
+    (512, 2048), (768, 2048), (512, 2560), (768, 2560), (1024, 2560),
+    (768, 3072), (1024, 3072), (1280, 3072), (1024, 3584), (1280, 3584)]
+BATCHING_FULL_GCD = [1 << k for k in range(12, 22)]
+
+
+def _registry_like(n, p, dtype, seed):
+    """``n`` composites (products of one to three distinct pool primes
+    that fit ``dtype``, a fifth random values, and 0 and 1) and a pool of
+    ``p - 3`` distinct primes below 50,000 padded with 0, 1 and 0."""
+    rng = np.random.default_rng(seed)
+    sieve = np.ones(50_000, dtype=bool)
+    sieve[:2] = False
+    for i in range(2, 224):
+        sieve[i * i::i] = False
+    primes = rng.choice(np.nonzero(sieve)[0], size=p - 3, replace=False)
+    top = 2**31 - 1 if dtype == np.int32 else 2**62
+    comps = []
+    for _ in range(n):
+        v = 1
+        for q in rng.choice(primes, size=int(rng.integers(1, 4)),
+                            replace=False):
+            if v * int(q) <= top:
+                v *= int(q)
+        comps.append(v)
+    comps = np.where(rng.random(n) < 0.2, rng.integers(0, top, size=n),
+                     comps)
+    comps[:2] = [0, 1]
+    pool = np.concatenate([primes, [0, 1, 0]])
+    return comps.astype(dtype), pool.astype(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n,p", BATCHING_FULL_FACTORIZE)
+def test_cuda_factorize_at_batching_full_shapes(cuda_device, dtype, n, p):
+    comps, primes = _registry_like(n, p, dtype, seed=n * p)
+    c = torch.from_numpy(comps).to(cuda_device)
+    q = torch.from_numpy(primes).to(cuda_device)
+    for x, y in zip(factorize.factorize_squarefree(c, q),
+                    ref.factorize_squarefree_ref(c, q)):
+        assert torch.equal(x, y)
+    # a row span that is not aligned to the kernel's vector stores
+    for x, y in zip(factorize.factorize_squarefree(c, q[:p - 5]),
+                    ref.factorize_squarefree_ref(c, q[:p - 5])):
+        assert torch.equal(x, y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", BATCHING_FULL_GCD)
+def test_cuda_gcd_at_batching_full_shapes(cuda_device, dtype, n):
+    """Pairs as the sharded exchange makes them (each query chunk against
+    every cross composite, pads of 1), and the same arrays one element
+    off their 16-byte alignment."""
+    comps, _ = _registry_like(max(n // 64, 8), 67, dtype, seed=n)
+    cross = torch.from_numpy(comps).to(cuda_device)
+    chunks = cross[:max(n // cross.numel(), 1)]
+    a = chunks.repeat_interleave(cross.numel())[:n].contiguous()
+    b = cross.repeat(chunks.numel())[:n].contiguous()
+    b[::7] = 1
+    want = ref.gcd_ref(a, b)
+    assert torch.equal(gcd.gcd(a, b), want)
+    assert torch.equal(gcd.gcd(a[1:], b[1:]), want[1:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cuda_flat_kernels_on_adversarial_inputs(cuda_device, dtype):
+    """The edges of the flat kernels' arithmetic that ``chip_smoke.py``
+    checks (largest values, powers of two, the largest primes below
+    2**31, large int64 primes), an out-of-contract pool (a duplicate
+    entry, 2 and 4, 3 and 9) and gcd chains (consecutive Fibonacci pairs,
+    zeros, equal sides, a side of 1, off 16-byte alignment): every kernel
+    equals its plain version."""
+    inputs = chip_smoke().adversarial_flat_inputs(dtype, device=cuda_device)
+    for c, q in inputs["factorize"]:
+        assert torch.equal(factorize.divisibility_mask(c, q),
+                           ref.divisibility_mask_ref(c, q))
+        for x, y in zip(factorize.factorize_squarefree(c, q),
+                        ref.factorize_squarefree_ref(c, q)):
+            assert torch.equal(x, y)
+    for x, y in inputs["gcd"]:
+        assert torch.equal(gcd.gcd(x, y), ref.gcd_ref(x, y))
+    torch.cuda.synchronize()
 
 
 #: entries at the edges of the limb kernels' arithmetic: powers of two,

@@ -228,6 +228,43 @@ def test_chip_smoke_bench_phases_on_cpu(monkeypatch):
     assert chip_smoke.bench_failures("BENCH_case_serving.json", drifted)
 
 
+def test_chip_smoke_adversarial_flat_inputs_on_cpu(monkeypatch):
+    """The flat kernels' edge inputs ``kernel_check`` adds hold for the
+    plain versions at both widths (each within its type, the residual
+    defined), include the out-of-contract pool and the Fibonacci chains,
+    and a kernel wrong on them fails ``check_exact``."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.kernels import ref
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for dtype in (torch.int32, torch.int64):
+        adv = chip_smoke.adversarial_flat_inputs(dtype)
+        assert len(adv["factorize"]) == (2 if dtype == torch.int32 else 3)
+        for args in adv["factorize"]:
+            for name in ("divisibility_mask", "factorize_squarefree"):
+                assert chip_smoke.check_exact(name, args)[0] == 0
+        a, b = adv["gcd"][0]
+        top = torch.iinfo(dtype).max
+        last = chip_smoke.fibonacci_pairs(top)[-1]
+        assert sum(last) > top and last in zip(a.tolist(), b.tolist())
+        for args in adv["gcd"]:
+            assert chip_smoke.check_exact("gcd", args)[0] == 0
+        assert adv["gcd"][2][0].data_ptr() % 16 != 0     # off alignment
+    dup = chip_smoke.adversarial_flat_inputs(torch.int32)["factorize"][1]
+    assert ref.factorize_squarefree_ref(*dup)[1].tolist()[:6] == [0] * 6
+
+    def wrong_residual(c, p):
+        mask, res = ref.factorize_squarefree_ref(c, p)
+        return mask, res + (c == 2**31 - 1).to(res.dtype)
+
+    monkeypatch.setattr(chip_smoke, "kernel_pair",
+                        lambda name: (wrong_residual,
+                                      ref.factorize_squarefree_ref))
+    with pytest.raises(AssertionError):
+        chip_smoke.check_exact("factorize_squarefree", dup)
+
+
 def _captured_inputs():
     """Inputs of two shapes for gcd and one for each other kernel, keyed
     as ``chip_smoke.Capture`` keys them."""

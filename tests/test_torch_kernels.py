@@ -4,8 +4,9 @@
 comparison is exact.  The CUDA kernels are held against the same plain
 versions on the card by ``tests/test_torch_gpu.py``."""
 
-from torch_parity import kernel_inputs
+from torch_parity import BIG_PRIMES, chip_smoke, first_primes, kernel_inputs
 
+import math
 import os
 
 import jax.numpy as jnp
@@ -135,6 +136,337 @@ def test_wrappers_match_pallas_interpret(dtype):
     np.testing.assert_array_equal(res.numpy(), np.asarray(res_p))
     np.testing.assert_array_equal(tgcd.gcd(_t(a), _t(b)).numpy(),
                                   np.asarray(g_p))
+
+
+# --------------------------------------------------------------------------- #
+# the flat kernels' arithmetic (csrc/factorize.cu, csrc/gcd.cu), modelled in  #
+# Python ints                                                                  #
+# --------------------------------------------------------------------------- #
+# Each function below is written as the CUDA source writes it, on unsigned
+# w-bit words (w = 32 for int32, 64 for int64) with the wraparound made
+# explicit, so that the arithmetic the card runs is held against ``%``,
+# ``//`` and ``math.gcd`` here; the kernels themselves run only on the card.
+
+WIDTHS = (32, 64)
+
+
+def _ctz(x):
+    return (x & -x).bit_length() - 1          # __ffs(x) - 1, x != 0
+
+
+def _inverse(q, w):
+    """``inverse()``: q**-1 mod 2**w for odd q, from the seed (3 q) ^ 2 by
+    3 (w = 32) or 4 (w = 64) Newton rounds x <- x (2 - q x)."""
+    m = (1 << w) - 1
+    x = (3 * q & m) ^ 2
+    for _ in range(3 if w == 32 else 4):
+        x = x * ((2 - q * x) & m) & m
+    return x
+
+
+def _entry_of(p, w):
+    """``entry_of()``: (q**-1, q, 2**t - 1) with p = 2**t q, q odd."""
+    t = _ctz(p)
+    q = p >> t
+    return _inverse(q, w), q, (1 << t) - 1
+
+
+def _divides(entry, c, w):
+    """``divides()``: the low t bits of c are zero and the high word of
+    (c q**-1 mod 2**w) * q is zero."""
+    qinv, q, low = entry
+    x = c * qinv & ((1 << w) - 1)
+    return ((c & low) | (x * q >> w)) == 0
+
+
+def _divides_by_limit(entry, c, w):
+    """The same test as a limit: c q**-1 mod 2**w <= floor((2**w - 1) /
+    q), the form that needs one division per entry."""
+    qinv, q, low = entry
+    return c & low == 0 and c * qinv % (1 << w) <= ((1 << w) - 1) // q
+
+
+def _divide_out(res, p, w):
+    """``divide_out()``: ``(quotient, exact)``; the shift of res q**-1 when
+    p divides res, else the floor division."""
+    qinv, q, low = _entry_of(p, w)
+    x = res * qinv & ((1 << w) - 1)
+    if ((res & low) | (x * q >> w)) == 0:
+        return x >> _ctz(p), True
+    return res // p, False
+
+
+def _factorize_model(comps, pool, w):
+    """``factorize_kernel`` row by row: the mask from ``divides`` on the
+    live entries (> 1), and the residual from each hit divided out in
+    pool order (none for a residual of 0); also the floor divisions
+    taken."""
+    live = [(j, _entry_of(p, w)) for j, p in enumerate(pool) if p > 1]
+    mask, residual, floors = [], [], 0
+    for c in comps:
+        hits = [j for j, e in live if _divides(e, c, w)]
+        res = c
+        if res:
+            for j in hits:
+                res, exact = _divide_out(res, pool[j], w)
+                floors += not exact
+        mask.append([j in hits for j in range(len(pool))])
+        residual.append(res)
+    return mask, residual, floors
+
+
+def _odd_gcd32(u, v):
+    """``odd_gcd32()``: u, v odd and below 2**32; ``(gcd, steps)``."""
+    steps = 0
+    while u != v and v != 1 and u != 1:
+        lo, d = min(u, v), max(u, v) - min(u, v)
+        u, v = lo, d >> _ctz(d)
+        steps += 1
+    return (1 if 1 in (u, v) else u), steps
+
+
+def _redc_step(s, limb, m, mneg_inv):
+    """``redc_step()``: (s + limb + k m) 2**-32, the low word cancelled."""
+    t = s + limb
+    k = (t & 0xFFFFFFFF) * mneg_inv & 0xFFFFFFFF
+    assert (t + k * m) & 0xFFFFFFFF == 0
+    return (t + k * m) >> 32
+
+
+def _gcd_small(x, m):
+    """``gcd_small()``: odd m < 2**31, odd x < 2**64; ``(gcd, steps,
+    reduced)``, the wide side reduced by two Montgomery steps where it
+    is far larger than m."""
+    assert m & 1 and x & 1 and m < 2**31 and x < 2**64
+    if m == 1:
+        return 1, 0, False
+    s, reduced = x & 0xFFFFFFFF, False
+    if x >> 32 or x >> 8 >= m:
+        mneg = -_inverse(m, 32) & 0xFFFFFFFF
+        s = _redc_step(0, x & 0xFFFFFFFF, m, mneg)
+        s = _redc_step(s, x >> 32, m, mneg)
+        assert s <= m + 1 and s % m == x * pow(2, -64, m) % m
+        if s in (0, m):
+            return m, 0, True
+        s >>= _ctz(s)
+        reduced = True
+    g, steps = _odd_gcd32(s, m)
+    return g, steps, reduced
+
+
+def _gcd_model(a, b, w):
+    """``gcd_of()`` at width w: ``(gcd, 64-bit steps, 32-bit steps,
+    reduced)``."""
+    if a == 0 or b == 0:
+        return a | b, 0, 0, False
+    k = _ctz(a | b)
+    u, v = a >> _ctz(a), b >> _ctz(b)
+    wide = 0
+    while min(u, v) >> 31:
+        assert w == 64
+        if u == v:
+            return u << k, wide, 0, False
+        lo, d = min(u, v), max(u, v) - min(u, v)
+        u, v = lo, d >> _ctz(d)
+        wide += 1
+    g, narrow, reduced = _gcd_small(max(u, v), min(u, v))
+    return g << k, wide, narrow, reduced
+
+
+def _edge_values(w):
+    top = (1 << (w - 1)) - 1                  # the type's largest value
+    vals = {0, 1, 2, 3, 4, 6, 9, 2**30, 2**30 - 1, 2**31 - 2, 2**31 - 1,
+            2_147_483_629, 65_521, 65_521 * 32_749, top, top - 1}
+    if w == 64:
+        vals |= {2**62, 2**62 + 2, 2**61 - 1, 3 * (2**61 - 1), 2**63 - 2,
+                 2**40 * 3, *(int(q) for q in BIG_PRIMES),
+                 int(np.prod(BIG_PRIMES[:3].astype(object)))}
+    return sorted(v for v in vals if v <= top)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_flat_inverse_by_newton(w):
+    """q * q**-1 == 1 mod 2**w for odd q across the type and at its edges;
+    the seed (3 q) ^ 2 is right to 5 bits, so one round fewer would not
+    reach w for every q."""
+    rng = np.random.default_rng(w)
+    top = (1 << (w - 1)) - 1
+    qs = [int(q) | 1 for q in rng.integers(1, top, size=20_000)]
+    qs += [1, 3, 5, 2**31 - 1, 2_147_483_629, top, top - 2]
+    for q in qs:
+        assert q * _inverse(q, w) % (1 << w) == 1, q
+    for q in range(1, 64, 2):
+        assert q * ((3 * q) ^ 2) % 32 == 1
+    assert any(q * _inverse(q, w // 2) % (1 << w) != 1 for q in qs)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_flat_divisibility_model_on_edge_values(w):
+    """Every edge value against every edge entry > 1: the division-free
+    test, its limit form and ``%`` agree; on a hit the exact quotient is
+    ``//``, and the shift path is taken exactly when p divides."""
+    vals = _edge_values(w)
+    for p in (v for v in vals if v > 1):
+        e = _entry_of(p, w)
+        for c in vals:
+            want = c % p == 0
+            assert _divides(e, c, w) == _divides_by_limit(e, c, w) == want, \
+                (c, p)
+            assert _divide_out(c, p, w) == (c // p, want), (c, p)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("seed", range(2))
+def test_flat_divisibility_model_on_random_draws(w, seed):
+    """50,000 seeded draws per seed (10**5 per width): entries odd, even,
+    powers of two and small, values across the type, half of them
+    multiples of the entry; test, limit form and exact-or-floor division
+    against ``%`` and ``//``."""
+    rng = np.random.default_rng(100 * w + seed)
+    top = (1 << (w - 1)) - 1
+    n = 50_000
+    kind = rng.integers(0, 4, size=n)
+    ps = [int(x) for x in rng.integers(2, top, size=n, dtype=np.int64)]
+    shifts = rng.integers(0, w - 2, size=n)
+    smalls = rng.integers(2, 64, size=n)
+    cs = [int(x) for x in rng.integers(0, top, size=n, dtype=np.int64)]
+    hits = 0
+    for i in range(n):
+        p = ps[i]
+        if kind[i] == 1:
+            p = max(p >> int(rng.integers(0, w - 2)) & ~0xFF, 2)
+        elif kind[i] == 2:
+            p = 1 << int(shifts[i]) or 2
+        elif kind[i] == 3:
+            p = int(smalls[i])
+        p = max(p, 2)
+        c = cs[i]
+        if i % 2:
+            c = (c // p) * p
+        e = _entry_of(p, w)
+        want = c % p == 0
+        assert _divides(e, c, w) == _divides_by_limit(e, c, w) == want, (c, p)
+        assert _divide_out(c, p, w) == (c // p, want), (c, p)
+        hits += want
+    assert hits > n // 2 - n // 50
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_flat_factorize_model_matches_plain_version(dtype):
+    """The kernel's model equals the plain version (mask and residual) on
+    the adversarial pools and on seeded registry-like inputs; the
+    in-contract pools take no floor division, the out-of-contract one
+    (a duplicate entry, 2 and 4, 3 and 9) takes some, and its residuals
+    still equal c // prod."""
+    w = 32 if dtype == np.int32 else 64
+    cases = chip_smoke().adversarial_flat_inputs(DTYPES[dtype],
+                                                 device="cpu")["factorize"]
+    cases.append(tuple(_t(x) for x in kernel_inputs(300, 70, dtype, seed=5)))
+    for i, (comps, pool) in enumerate(cases):
+        mask, res, floors = _factorize_model(comps.tolist(), pool.tolist(),
+                                             w)
+        m_ref, r_ref = tref.factorize_squarefree_ref(comps, pool)
+        np.testing.assert_array_equal(np.asarray(mask, bool), m_ref.numpy())
+        assert res == r_ref.tolist()
+        assert res == [c // math.prod(p for p, hit in zip(pool.tolist(), row)
+                                      if hit) if c else 0
+                       for c, row in zip(comps.tolist(), mask)]
+        out_of_contract = len(set(p for p in pool.tolist() if p > 1)) < \
+            sum(p > 1 for p in pool.tolist())
+        assert (floors > 0) == out_of_contract, (i, floors)
+
+
+def _walk_order(thread_bits, E):
+    """``walk()``'s order of a row's hits: lane l reads the 16-bit masks of
+    threads 8 l .. 8 l + 7 as four little-endian words; lanes with a hit
+    in ballot order, then each word's set bits ascending."""
+    words = [thread_bits[2 * i] | thread_bits[2 * i + 1] << 16
+             for i in range(len(thread_bits) // 2)]
+    order = []
+    for src in range(32):
+        for k in range(4):
+            bits = words[4 * src + k]
+            while bits:
+                b = _ctz(bits)
+                bits &= bits - 1
+                order.append((8 * src + 2 * k + (b >> 4)) * E + (b & 15))
+    return order
+
+
+@pytest.mark.parametrize("E", [4, 8, 16])
+def test_flat_mask_bytes_and_walk_order(E):
+    """``store_mask()`` spreads each nibble of hit bits to four 0/1 bytes
+    with one multiply; ``walk()`` visits a chunk's hits in pool order,
+    at every entry count a thread may own."""
+    for nib in range(16):
+        spread = nib * 0x00204081 & 0x01010101 & 0xFFFFFFFF
+        assert spread.to_bytes(4, "little") == bytes(
+            (nib >> i) & 1 for i in range(4))
+    rng = np.random.default_rng(E)
+    for density in (0.0, 0.01, 0.2, 1.0):
+        hit = rng.random(256 * E) < density
+        thread_bits = [sum(int(hit[t * E + e]) << e for e in range(E))
+                       for t in range(256)]
+        assert _walk_order(thread_bits, E) == np.flatnonzero(hit).tolist()
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_flat_gcd_model(w):
+    """The binary gcd's model against ``math.gcd``: consecutive Fibonacci
+    pairs to the type's top (and swapped), 0 on either side and both,
+    equal sides, a side of 1, the adversarial pairs and 20,000 seeded
+    draws (half sharing a factor).  A step removes at least one bit, so
+    no pair takes more than 2 w steps."""
+    top = (1 << (w - 1)) - 1
+    dtype = torch.int32 if w == 32 else torch.int64
+    a, b = chip_smoke().adversarial_flat_inputs(dtype, device="cpu")["gcd"][0]
+    pairs = list(zip(a.tolist(), b.tolist()))
+    fib = chip_smoke().fibonacci_pairs(top)
+    assert sum(fib[-1]) > top                 # the next term would overflow
+    pairs += fib + [(y, x) for x, y in fib]
+    rng = np.random.default_rng(w)
+    xs = rng.integers(0, top, size=(20_000, 3), dtype=np.int64).tolist()
+    for i, (x, y, s) in enumerate(xs):
+        if i % 2:
+            s = s % (1 << 20) + 1
+            x, y = x // s * s, y // s * s
+        pairs.append((x, y))
+    reduced = 0
+    for x, y in pairs:
+        g, wide, narrow, red = _gcd_model(x, y, w)
+        assert g == math.gcd(x, y), (x, y)
+        assert wide + narrow <= 2 * w, (x, y)
+        reduced += red
+    assert reduced > 0
+    assert _gcd_model(0, 0, w)[0] == 0 and _gcd_model(7, 0, w)[0] == 7
+
+
+def test_flat_gcd_model_on_exchange_pairs():
+    """Pairs as the sharded exchange makes them: query chunks (products
+    of primes up to 2**62) against cross composites of two primes (about
+    24 bits) and pads of 1.  The wide side is reduced by the Montgomery
+    steps, after which no pair needs more than 2 * 32 binary steps, and
+    every gcd equals ``math.gcd``."""
+    rng = np.random.default_rng(5)
+    primes = first_primes(550).tolist()
+    chunks = []
+    for _ in range(40):
+        c = 1
+        for q in rng.permutation(primes).tolist():
+            if c * q >= 2**62:
+                break
+            c *= q
+        chunks.append(c)
+    cross = [int(rng.choice(primes)) * int(rng.choice(primes))
+             for _ in range(60)] + [1, 1, 1]
+    n_red = 0
+    for a in chunks:
+        for b in cross:
+            g, wide, narrow, red = _gcd_model(a, b, 64)
+            assert g == math.gcd(a, b), (a, b)
+            assert wide == 0 and narrow <= 64
+            n_red += red
+    assert n_red > len(chunks) * 50
 
 
 # --------------------------------------------------------------------------- #

@@ -1,39 +1,26 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
 
-Every port test file imports this module at its top, so each pytest
-worker applies the same setup at collection:
-
-  * ``jax.experimental.enable_x64`` was removed in JAX 0.9.0, and the
-    reference (``repro.kernels.ops``, ``repro.core.engine.shard``) still
-    imports it; it is set to ``jax.enable_x64`` when missing, so the
-    reference runs unchanged as the oracle.  Where JAX is not installed
-    (a machine that runs only the port's card tests) there is nothing to
-    set.
-  * :func:`registry_arrays` reads either package's cache as plain numpy,
-    so the tests compare state, not only counters; :func:`state_arrays`
-    reads an assigner and its registry as the arrays that
-    ``repro_torch.core.state_from_arrays`` takes;
-    :func:`kernel_inputs` makes the kernels' test inputs from a seed.
+:func:`registry_arrays` reads either package's cache as plain numpy, so
+the tests compare state, not only counters; :func:`state_arrays` reads an
+assigner and its registry as the arrays that
+``repro_torch.core.state_from_arrays`` takes; :func:`kernel_inputs` makes
+the kernels' test inputs from a seed; :func:`chip_smoke` loads the smoke
+script, whose edge inputs the tests share.  (``tests/conftest.py`` makes
+the reference importable under JAX 0.9.0.)
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
 
-try:
-    import jax
-    import jax.experimental
-except ImportError:
-    jax = None
-
-if jax is not None and not hasattr(jax.experimental, "enable_x64"):
-    jax.experimental.enable_x64 = jax.enable_x64
-
 __all__ = ["registry_arrays", "assert_registries_equal", "kernel_inputs",
            "first_primes", "state_arrays", "assert_state_arrays_equal",
-           "BIG_PRIMES"]
+           "BIG_PRIMES", "chip_smoke"]
 
 BIG_PRIMES = np.array([1_000_003, 1_000_033, 1_000_037, 1_000_039,
                        999_983, 999_979], dtype=np.int64)
@@ -64,6 +51,18 @@ def kernel_inputs(n, p, dtype, seed):
     comps[:2] = [0, 1][:n]
     pool = np.concatenate([rng.permutation(primes), [0, 1, 0]])[:p]
     return comps.astype(dtype), pool.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def chip_smoke():
+    """``chip_smoke.py`` at the root of the checkout, as a module (it
+    imports only numpy and torch at load time): the tests hold the flat
+    kernels on the edge inputs it checks on the card."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def registry_arrays(cache) -> Dict[str, object]:
