@@ -17,12 +17,12 @@ went, ``sharded_time_split``):
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
   build          the six kernels and an empty one, with ``-Xptxas -v``'s
-                 register, shared-memory and spill lines (for the flat
-                 factorization and gcd under the name of each template
-                 instance), and the launch floor: the graph-replay time
-                 of the empty kernel launched through the same ``ctypes``
-                 binding (``launch_floor_ms``, repeated in every kernel
-                 line);
+                 register, shared-memory and spill lines (for the
+                 redesigned kernels, ``REDESIGNED``, under the name of
+                 each template instance), and the launch floor: the
+                 graph-replay time of the empty kernel launched through
+                 the same ``ctypes`` binding (``launch_floor_ms``,
+                 repeated in every kernel line);
   kernel_check   each kernel against its plain PyTorch version on the card
                  at registry-refresh sizes: the flat kernels in int32 and
                  int64, also on the edges of their arithmetic (the
@@ -81,7 +81,12 @@ Every path that launches the kernels holds each kernel against its plain
 version on one input of every distinct shape and dtype the path gave it,
 times it in full at the largest, and by graph replay at every shape it
 launched at, with the launches at each: the sharded runs' device time per
-kernel is the sum of launches times graph ms over its shapes.  Every
+kernel is the sum of launches times graph ms over its shapes.  The flat
+mask's lines also give the share of its rows of 2**32 or more (the
+64-bit test) and of 0 or 1 (no test), the largest pool entry, and at
+each timed shape ``write_only_ms``, the graph time of writing a mask of
+that shape alone (a PyTorch fill); the limb factorization's give its rows
+by significant limbs and the most hits of a row.  Every
 check raises; the first failure prints ``{"phase": ..., "error": ...,
 "traceback": ...}`` on stdout and exits 1.  No measurement decides pass
 or fail.  Kernel times are
@@ -652,7 +657,16 @@ def check_and_time(name: str, args) -> dict:
         lib = timed(lambda: torch.gcd(*args))
         row["library_ms"] = lib["graph_ms"]
         row["library_wrapper_ms"] = lib["wrapper_ms"]
+    if name == "divisibility_mask":
+        row["write_only_ms"] = mask_write_ms(outs_k[0])
     return row
+
+
+def mask_write_ms(mask: torch.Tensor) -> float:
+    """Graph-replay ms of writing a mask of this shape alone (PyTorch's
+    fill): a yardstick of the flat mask's stores, never used by the port."""
+    out = torch.empty_like(mask)
+    return graph_ms(lambda: out.zero_())
 
 
 def check_and_graph_time(name: str, args) -> dict:
@@ -671,6 +685,8 @@ def check_and_graph_time(name: str, args) -> dict:
         torch.cuda.synchronize()
         row["graph_ms"] = None
         row["graph_error"] = f"{type(exc).__name__}: {exc}"[:300]
+    if name == "divisibility_mask":
+        row["write_only_ms"] = mask_write_ms(outs_k[0])
     return row
 
 
@@ -827,6 +843,8 @@ def check_path(label: str, launches: dict, inputs: dict,
                 shapes.append({"dtype": key[0], "shape": at["shape"],
                                "launches": n_at, "graph_ms": at["graph_ms"],
                                "bound_ms": at["bound_ms"]})
+                if "write_only_ms" in at:
+                    shapes[-1]["write_only_ms"] = at["write_only_ms"]
             other = other_dtype(args)
             if other is not None:
                 check_exact(name, other)
@@ -846,9 +864,48 @@ def check_path(label: str, launches: dict, inputs: dict,
                                  for x in shapes))
         row.update(shapes_checked=len(seen), also_exact_as=sorted(also),
                    largest=[list(map(list, top[1])), top[0]])
+        if name == "divisibility_mask":
+            row.update(mask_row_classes(seen, counts))
+        if name == "factorize_limbs":
+            row.update(limb_row_classes(seen))
         emit({"phase": f"kernel_{label}", **row})
         rows.append(row)
     return rows
+
+
+def mask_row_classes(seen: dict, counts: dict) -> dict:
+    """What the flat mask met on a path: the share of its rows of 2**32
+    or more (the 64-bit test; the rest take the 32-bit one), and of 0 or
+    1 (no test), over the captured input of each shape weighted by that
+    shape's launches (each shape once where none were counted), and the
+    largest pool entry captured."""
+    wide = small = rows = 0
+    for key, (comps, pool) in seen.items():
+        k = counts.get(key, 0) or 1
+        wide += k * int((comps.long() >= 2**32).sum())
+        small += k * int((comps <= 1).sum())
+        rows += k * comps.numel()
+    return {"rows_at_least_2_32_share": wide / max(rows, 1),
+            "rows_0_or_1_share": small / max(rows, 1),
+            "max_pool_entry": max((int(pool.max()) for _, pool in seen.values()
+                                   if pool.numel()), default=None)}
+
+
+def limb_row_classes(seen: dict) -> dict:
+    """What the limb factorization met on a path: its rows by significant
+    limbs (``{limbs: rows}``) and the most hits (dividing entries) of any
+    row, over the captured inputs."""
+    from repro_torch.kernels import ref
+
+    by_limbs, hits = {}, 0
+    for limbs, pool in seen.values():
+        counts = torch.bincount(significant_limbs(limbs)).tolist()
+        for k, v in enumerate(counts):
+            if v:
+                by_limbs[str(k)] = by_limbs.get(str(k), 0) + v
+        mask = ref.divisibility_mask_limbs_ref(limbs, pool)
+        hits = max(hits, int(mask.sum(dim=1).max()) if mask.numel() else 0)
+    return {"rows_by_significant_limbs": by_limbs, "max_hits_per_row": hits}
 
 
 def time_split(wall_s: float, seconds: dict, launches: dict,
@@ -1049,7 +1106,8 @@ def phase_device(ctx: Context) -> dict:
 
 #: the kernels whose compiled functions the build line names (the
 #: ``-Xptxas -v`` lines of each template instance follow its name)
-REDESIGNED = ("factorize_squarefree", "gcd")
+REDESIGNED = ("divisibility_mask", "factorize_squarefree", "gcd",
+              "factorize_limbs")
 
 
 def phase_build(ctx: Context) -> dict:

@@ -59,39 +59,15 @@
 namespace {
 
 using pfcs::ctz;
-using pfcs::inverse;
+using pfcs::divides;
+using pfcs::Entry;
+using pfcs::entry_of;
+using pfcs::pin;
 
 constexpr int kThreads = 256;
 constexpr int kMaxRowsLog2 = 3;
 constexpr int kMaxRows = 1 << kMaxRowsLog2;   // one walking warp per row: the block's 8
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t mulhi(uint32_t a, uint32_t b) { return __umulhi(a, b); }
-__device__ __forceinline__ uint64_t mulhi(uint64_t a, uint64_t b) { return __umul64hi(a, b); }
-
-// An entry p > 1 as q**-1, q and 2**t - 1 (p = 2**t q, q odd).
-template <typename U>
-struct Entry {
-  U qinv, q, low;
-};
-
-template <typename U>
-__device__ __forceinline__ Entry<U> entry_of(U p) {
-  const int t = ctz(p);
-  const U q = p >> t;
-  return {inverse(q), q, (U(1) << t) - U(1)};
-}
-
-// Keep a value in a register as computed: otherwise the compiler may
-// recompute each entry's inverse inside the row loop to spare registers,
-// which multiplies the instructions a pair costs.
-__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)); }
-__device__ __forceinline__ void pin(uint64_t& v) { asm volatile("" : "+l"(v)); }
-
-template <typename U>
-__device__ __forceinline__ bool divides(const Entry<U>& e, U c) {
-  return ((c & e.low) | mulhi(c * e.qinv, e.q)) == U(0);
-}
 
 // res divided by one dividing entry p: exact (a shift of c q**-1) when p
 // divides res, else the floor division.
@@ -99,41 +75,8 @@ template <typename U>
 __device__ __forceinline__ U divide_out(U res, U p) {
   const Entry<U> e = entry_of(p);
   const U x = res * e.qinv;
-  if (((res & e.low) | mulhi(x, e.q)) == U(0)) return x >> ctz(p);
+  if (((res & e.low) | pfcs::mulhi(x, e.q)) == U(0)) return x >> ctz(p);
   return res / p;
-}
-
-// Word i of a 16-byte vector read as U.
-template <typename U>
-__device__ __forceinline__ U word(const uint4& v, int i) {
-  if constexpr (sizeof(U) == 4) {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-  } else {
-    return i == 0 ? (static_cast<uint64_t>(v.y) << 32 | v.x)
-                  : (static_cast<uint64_t>(v.w) << 32 | v.z);
-  }
-}
-
-// The E mask bytes of one row from its hit bits: each nibble spread to four
-// 0/1 bytes by one multiply (bit i lands on bit 8 i, nothing else does).
-template <int E>
-__device__ __forceinline__ void store_mask(uint8_t* dst, uint32_t bits, int cnt) {
-  if (cnt == E && (reinterpret_cast<uintptr_t>(dst) & (E - 1)) == 0) {
-    uint32_t w[E >> 2];
-#pragma unroll
-    for (int k = 0; k < (E >> 2); ++k) {
-      w[k] = (((bits >> (4 * k)) & 0xfu) * 0x00204081u) & 0x01010101u;
-    }
-    if constexpr (E == 4) {
-      *reinterpret_cast<uint32_t*>(dst) = w[0];
-    } else if constexpr (E == 8) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  } else {
-    for (int e = 0; e < cnt; ++e) dst[e] = static_cast<uint8_t>((bits >> e) & 1u);
-  }
 }
 
 // Divide res by every hit of one row in one chunk, in pool order.  All
@@ -191,26 +134,7 @@ factorize_kernel(const U* __restrict__ c, const U* __restrict__ p,
     constexpr int kVecs = (E * static_cast<int>(sizeof(U))) >> 4;
     constexpr int kPerVec = sizeof(U) == 4 ? 4 : 2;
     uint4 vec[kVecs];
-    if (cnt == E && (reinterpret_cast<uintptr_t>(p + j0) & 15u) == 0) {
-#pragma unroll
-      for (int k = 0; k < kVecs; ++k) vec[k] = __ldg(reinterpret_cast<const uint4*>(p + j0) + k);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kVecs; ++k) {
-        U part[kPerVec];
-#pragma unroll
-        for (int i = 0; i < kPerVec; ++i) {
-          const int e = k * kPerVec + i;
-          part[i] = e < cnt ? p[j0 + e] : U(0);
-        }
-        if constexpr (sizeof(U) == 4) {
-          vec[k] = make_uint4(part[0], part[1], part[2], part[3]);
-        } else {
-          vec[k] = make_uint4(static_cast<uint32_t>(part[0]), static_cast<uint32_t>(part[0] >> 32),
-                              static_cast<uint32_t>(part[1]), static_cast<uint32_t>(part[1] >> 32));
-        }
-      }
-    }
+    pfcs::load_entries<U, E>(p, j0, cnt, vec);
     Entry<U> ent[E];
     uint32_t live = 0;
 #pragma unroll
@@ -219,7 +143,7 @@ factorize_kernel(const U* __restrict__ c, const U* __restrict__ p,
 #pragma unroll
       for (int i = 0; i < kPerVec; ++i) {
         const int e = k * kPerVec + i;
-        const U pj = word<U>(vec[k], i);
+        const U pj = pfcs::word<U>(vec[k], i);
         const bool ok = pj > U(1);
         ent[e] = entry_of(ok ? pj : U(1));
         pin(ent[e].qinv);
@@ -236,7 +160,7 @@ factorize_kernel(const U* __restrict__ c, const U* __restrict__ p,
       for (int e = 0; e < E; ++e) bits |= static_cast<uint32_t>(divides(ent[e], cv)) << e;
       bits &= live;
       hits[r][tid] = static_cast<uint16_t>(bits);
-      if (cnt > 0) store_mask<E>(mask + (row0 + r) * np + j0, bits, cnt);
+      if (cnt > 0) pfcs::store_mask<E>(mask + (row0 + r) * np + j0, bits, cnt);
     }
     __syncthreads();
     if (warp < live_rows && res != U(0)) res = walk<U, E>(res, hits[warp], p_chunk, lane);

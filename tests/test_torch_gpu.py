@@ -130,6 +130,31 @@ def test_cuda_factorize_at_batching_full_shapes(cuda_device, dtype, n, p):
     torch.cuda.synchronize()
 
 
+#: the shapes the same refresh gives the flat mask (rows, pool entries)
+BATCHING_FULL_MASK = [(256, 512), (512, 512), (512, 1024), (1024, 1024),
+                      (1024, 2048), (2048, 2048), (2048, 4096), (4096, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n,p", BATCHING_FULL_MASK)
+def test_cuda_mask_at_batching_full_shapes(cuda_device, dtype, n, p):
+    """Registry-like rows (products of pool primes, a fifth random, so
+    wide at int64, and 0 and 1), also with every third row a pad of 1 as
+    the serving path pads; and the same pool five entries short, so that
+    the row spans are off the vector stores' alignment."""
+    comps, primes = _registry_like(n, p, dtype, seed=n * p + 1)
+    c = torch.from_numpy(comps).to(cuda_device)
+    q = torch.from_numpy(primes).to(cuda_device)
+    padded = c.clone()
+    padded[::3] = 1
+    for rows in (c, padded):
+        for pool in (q, q[:p - 5]):
+            assert torch.equal(factorize.divisibility_mask(rows, pool),
+                               ref.divisibility_mask_ref(rows, pool))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("n", BATCHING_FULL_GCD)
@@ -272,6 +297,59 @@ def test_cuda_limb_kernels_on_large_pools(cuda_device, n_limbs):
     pairs = torch.arange(4 * 300, device=cuda_device)
     ra, rb = c[pairs // 4].contiguous(), c[pairs % 300].contiguous()
     assert torch.equal(gcd.gcd_limbs(ra, rb, q), ref.gcd_limbs_ref(ra, rb, q))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_limbs", [2, 3, 8, 32])
+def test_cuda_factorize_limbs_on_adversarial_rows(cuda_device, n_limbs):
+    """``chip_smoke.py``'s limb inputs: rows that are products of up to 60
+    pool entries (some times 9), random rows, 0, 1, 45 and the edge rows;
+    a pool with a duplicate entry, 2, 4 and 6, 2**30 and the largest
+    primes below 2**31 (the floor branch), the same pool without the
+    duplicate and the even entries but 2 (exact divisions only), and
+    ragged row and pool counts (one entry into the second piece of
+    1024)."""
+    inputs = chip_smoke().synthetic_limb_inputs(
+        n_limbs, np.random.default_rng(n_limbs))
+    c, pool = inputs["factorize_limbs"]
+    distinct = torch.where(torch.isin(pool, torch.tensor(
+        [4, 6, 2**30, int(pool[0])], device=cuda_device)), 0, pool)
+    for rows in (c, c[:37], c[:1]):
+        for q in (pool, distinct, pool[:1025], pool[:5]):
+            for x, y in zip(factorize.factorize_limbs(rows, q),
+                            ref.factorize_limbs_ref(rows, q)):
+                assert torch.equal(x, y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_factorize_limbs_at_scale_shape(cuda_device):
+    """``case_scale``'s decode shape: 2560 rows of 32 limbs against 2560
+    entries, rows products of distinct pool primes from one limb up to
+    1023 bits (a chain's chunks), zero and value-1 rows."""
+    rng = np.random.default_rng(2560)
+    sieve = np.ones(1 << 22, dtype=bool)
+    sieve[:2] = False
+    for i in range(2, 2049):
+        sieve[i * i::i] = False
+    pool = np.concatenate([rng.choice(np.nonzero(sieve)[0], size=2557,
+                                      replace=False), [0, 1, 0]])
+    pool = rng.permutation(pool).astype(np.int64)
+    live = [int(x) for x in pool if x > 1]
+    vals = []
+    for i in range(2560):
+        top, v = int(rng.integers(32, 1024)), 1
+        for q in rng.choice(live, size=60, replace=False):
+            if (v * int(q)).bit_length() < top:
+                v *= int(q)
+        vals.append(v)
+    vals[:2] = [0, 1]
+    c = torch.from_numpy(pack_limbs(vals, 32)).to(cuda_device)
+    q = torch.from_numpy(pool).to(cuda_device)
+    for x, y in zip(factorize.factorize_limbs(c, q),
+                    ref.factorize_limbs_ref(c, q)):
+        assert torch.equal(x, y)
     torch.cuda.synchronize()
 
 

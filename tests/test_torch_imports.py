@@ -313,6 +313,52 @@ def test_chip_smoke_checks_every_shape_a_path_gave(monkeypatch):
                               _captured_inputs(), timed=False)
 
 
+def test_chip_smoke_mask_lines_report_row_classes(monkeypatch):
+    """The flat mask's path line gives the share of its rows of 2**32 or
+    more and of 0 or 1, over every captured shape weighted by its
+    launches, and the largest pool entry; int32 rows are never wide."""
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    inputs = _captured_inputs()
+    c = torch.tensor([2**40, 3 * 2**32, 0, 15], dtype=torch.int64)
+    p = torch.tensor([3, 5, 2**33, 1], dtype=torch.int64)
+    small = next(iter(inputs["divisibility_mask"]))
+    big = ("int64", ((4,), (4,)))
+    inputs["divisibility_mask"][big] = (c, p)
+    counts = {name: {k: 1 for k in seen} for name, seen in inputs.items()}
+    counts["divisibility_mask"][big] = 3
+    launches = {name: sum(v.values()) for name, v in counts.items()}
+    rows = chip_smoke.check_path("t", launches, inputs, timed=False,
+                                 shape_launches=counts)
+    mask = next(r for r in rows if r["name"] == "divisibility_mask")
+    # the 6-row shape once (2 of its rows 0 or 1), the 4-row one 3 times
+    assert mask["rows_at_least_2_32_share"] == pytest.approx(6 / 18)
+    assert mask["rows_0_or_1_share"] == pytest.approx(5 / 18)
+    assert mask["max_pool_entry"] == 2**33
+    assert all("max_pool_entry" not in r for r in rows
+               if r["name"] != "divisibility_mask")
+    narrow = chip_smoke.mask_row_classes(
+        {small: tuple(x.int() for x in inputs["divisibility_mask"][small])},
+        {})
+    assert narrow["rows_at_least_2_32_share"] == 0
+    assert narrow["max_pool_entry"] == 7
+
+
+def test_chip_smoke_limb_lines_report_row_classes():
+    """The limb factorization's path line gives its rows by significant
+    limbs and the most dividing entries of any row."""
+    chip_smoke = _chip_smoke()
+    limbs = torch.tensor([[0, 0, 0], [15, 0, 0], [1, 2, 0], [30, 0, 5]],
+                         dtype=torch.int64)
+    pool = torch.tensor([5, 3, 2, 0, 1], dtype=torch.int64)
+    out = chip_smoke.limb_row_classes({("int64", ((4, 3), (5,))):
+                                       (limbs, pool)})
+    assert out["rows_by_significant_limbs"] == {"0": 1, "1": 1, "2": 1,
+                                                "3": 1}
+    assert out["max_hits_per_row"] == 3       # the zero row: 5, 3 and 2
+
+
 def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
     """The measured upper bound on the card's busy share is the kernel
     calls' seconds over wall only while every launch fell inside those

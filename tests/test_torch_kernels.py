@@ -139,8 +139,8 @@ def test_wrappers_match_pallas_interpret(dtype):
 
 
 # --------------------------------------------------------------------------- #
-# the flat kernels' arithmetic (csrc/factorize.cu, csrc/gcd.cu), modelled in  #
-# Python ints                                                                  #
+# the flat kernels' arithmetic (csrc/divmask.cu, factorize.cu, gcd.cu),       #
+# modelled in Python ints                                                     #
 # --------------------------------------------------------------------------- #
 # Each function below is written as the CUDA source writes it, on unsigned
 # w-bit words (w = 32 for int32, 64 for int64) with the wraparound made
@@ -467,6 +467,216 @@ def test_flat_gcd_model_on_exchange_pairs():
             assert wide == 0 and narrow <= 64
             n_red += red
     assert n_red > len(chunks) * 50
+
+
+# The flat mask (``csrc/divmask.cu``) as the card runs it: the launch's
+# layout, the branch each row takes and the store each row's span gets.
+
+_M32, _M64 = (1 << 32) - 1, (1 << 64) - 1
+#: the card's SM count that the launch sizes its grid by
+_SMS = 132
+
+
+def _small_entry(p):
+    """``small_entry()``: an entry below 2**32 at int64, (q**-1 mod 2**64,
+    q, 2**t - 1), the inverse lifted from the 32-bit one by one Newton
+    round."""
+    t = _ctz(p)
+    q = p >> t
+    x = _inverse(q, 32)
+    return x * ((2 - q * x) & _M64) & _M64, q, (1 << t) - 1
+
+
+def _narrow_divides(e, c):
+    """``narrow_divides()``: c < 2**32, the 32-bit test on the low words."""
+    qinv, q, low = e
+    x = c * (qinv & _M32) & _M32
+    return ((c & low) | (x * q >> 32)) == 0
+
+
+def _wide_divides(e, c):
+    """``wide_divides()``: the bits of (c q**-1 mod 2**64) * q above 2**64
+    from two 32-bit products by q."""
+    qinv, q, low = e
+    x = c * qinv & _M64
+    top = (x >> 32) * q + ((x & _M32) * q >> 32)
+    assert top < 1 << 64
+    return ((c & _M32 & low) | (top >> 32)) == 0
+
+
+def _divmask_layout(n, np_, w):
+    """``launch()``: (E, threads, chunks, rows) for an n x np_ mask."""
+    E = (4 if np_ <= 1024 else 8 if np_ <= 2048 or w == 64 else 16)
+    groups = -(-np_ // E)
+    threads = 32
+    while threads < 256 and threads < groups:
+        threads *= 2
+    chunks = -(-groups // threads)
+    shift = 5
+    while shift > 0 and chunks * -(-n // (1 << shift)) < _SMS:
+        shift -= 1
+    return E, threads, chunks, 1 << shift
+
+
+def _divmask_model(comps, pool, w, offset=0):
+    """``divmask_kernel`` thread by thread: ``(mask, tally)``.  The tally
+    counts each row class a thread met (zero, one, narrow, wide, general),
+    the threads that held an entry of 2**32 or more, and the vector and
+    byte stores (a span is aligned when the mask byte at ``offset`` + its
+    index is a multiple of E)."""
+    n, np_ = len(comps), len(pool)
+    E, threads, chunks, rows = _divmask_layout(n, np_, w)
+    mask = [[False] * np_ for _ in range(n)]
+    tally = dict.fromkeys(("zero", "one", "narrow", "wide", "general",
+                           "big_threads", "vector", "bytes"), 0)
+    for row0 in range(0, n, rows):
+        live_rows = min(rows, n - row0)
+        for chunk in range(chunks):
+            js = [(chunk * threads + t) * E for t in range(threads)]
+            ents = [pool[j:min(j + E, np_)] for j in js]
+            for j0, es in zip(js, ents):
+                if not es:
+                    continue
+                big = w == 64 and any(p >> 32 for p in es)
+                tally["big_threads"] += big
+                live = [p > 1 for p in es]
+                safe = [p if p > 1 else 1 for p in es]
+                if w == 32 or big:
+                    consts = [_entry_of(p, w) for p in safe]
+                else:
+                    consts = [_small_entry(p) for p in safe]
+                for r in range(row0, row0 + live_rows):
+                    c = comps[r]
+                    if c <= 1:
+                        kind = "zero" if c == 0 else "one"
+                        bits = live if c == 0 else [False] * len(es)
+                    else:
+                        if w == 32 or big:
+                            kind = "general"
+                            tests = [_divides(e, c, w) for e in consts]
+                        elif c >> 32 == 0:
+                            kind = "narrow"
+                            tests = [_narrow_divides(e, c) for e in consts]
+                        else:
+                            kind = "wide"
+                            tests = [_wide_divides(e, c) for e in consts]
+                        bits = [ok and t for ok, t in zip(live, tests)]
+                    tally[kind] += 1
+                    aligned = (offset + r * np_ + j0) % E == 0
+                    tally["vector" if len(es) == E and aligned
+                          else "bytes"] += 1
+                    mask[r][j0:j0 + len(es)] = bits
+    return mask, tally
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_flat_mask_model_on_adversarial_inputs(dtype):
+    """The mask kernel's model equals ``%`` and the plain version on
+    ``chip_smoke.adversarial_flat_inputs`` (type edges, powers of two,
+    the largest primes below 2**31, pads 0 and 1, zero rows, entries of
+    2**32 and more at int64), with each pool also one entry short (spans
+    off their alignment, byte stores), and on registry-like inputs; at
+    int64 every row class is met, the general test only by threads that
+    hold an entry of 2**32 or more."""
+    w = 32 if dtype == np.int32 else 64
+    cases = chip_smoke().adversarial_flat_inputs(DTYPES[dtype],
+                                                 device="cpu")["factorize"]
+    cases += [(c, p[:-1]) for c, p in cases]
+    cases.append(tuple(_t(x) for x in kernel_inputs(300, 70, dtype, seed=9)))
+    total = dict.fromkeys(("zero", "one", "narrow", "wide", "general",
+                           "big_threads", "vector", "bytes"), 0)
+    for comps, pool in cases:
+        cl, pl = comps.tolist(), pool.tolist()
+        mask, tally = _divmask_model(cl, pl, w)
+        assert mask == [[p > 1 and c % p == 0 for p in pl] for c in cl]
+        np.testing.assert_array_equal(
+            np.asarray(mask, bool).reshape(len(cl), len(pl)),
+            tref.divisibility_mask_ref(comps, pool).numpy())
+        big = any(p >> 32 for p in pl)
+        assert (tally["big_threads"] > 0) == big
+        assert (tally["general"] > 0) == (w == 32 or big)
+        for k in total:
+            total[k] += tally[k]
+    assert min(total[k] for k in ("zero", "one", "vector", "bytes")) > 0
+    assert (min(total["narrow"], total["wide"]) > 0) == (w == 64)
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("seed", range(2))
+def test_flat_mask_model_on_random_draws(w, seed):
+    """50,000 seeded (value, entry) draws per seed (10**5 per width):
+    entries odd, even, powers of two, small, 0 and 1, and at int64 also
+    of 2**32 and more; values narrow and wide, 0 and 1, half of them
+    multiples of the entry.  The test the kernel picks for the pair (by
+    the value's width and whether the entry is below 2**32) equals
+    ``%``; then a 64 x 300 mask of such values and entries equals the
+    plain version."""
+    rng = np.random.default_rng(7 * w + seed)
+    top = (1 << (w - 1)) - 1
+    n = 50_000
+    kind = rng.integers(0, 6, size=n)
+    ps = [int(x) for x in rng.integers(2, top, size=n, dtype=np.int64)]
+    cs = [int(x) for x in rng.integers(0, top, size=n, dtype=np.int64)]
+    shifts = rng.integers(0, w - 2, size=n)
+    narrow = rng.random(n) < 0.5
+    classes = dict.fromkeys(("narrow", "wide", "general"), 0)
+    for i in range(n):
+        p = ps[i]
+        if kind[i] == 1:
+            p = max(p >> int(shifts[i]) & ~0xFF, 2)
+        elif kind[i] == 2:
+            p = 1 << int(shifts[i]) or 2
+        elif kind[i] == 3:
+            p = int(rng.integers(0, 64))
+        elif kind[i] == 4 and w == 64:
+            p = p & _M32 or 3
+        c = cs[i] & _M32 if narrow[i] and w == 64 else cs[i]
+        if i % 2 and p > 1:
+            c = (c // p) * p
+        elif i % 7 == 0:
+            c = i % 2
+        want = p > 1 and c % p == 0
+        if p <= 1 or c <= 1:
+            got = p > 1 and c == 0
+        elif w == 32 or p >> 32:
+            got, cls = _divides(_entry_of(p, w), c, w), "general"
+        elif c >> 32 == 0:
+            got, cls = _narrow_divides(_small_entry(p), c), "narrow"
+        else:
+            got, cls = _wide_divides(_small_entry(p), c), "wide"
+        assert got == want, (c, p)
+        if p > 1 and c > 1:
+            classes[cls] += 1
+    assert classes["general"] > 0
+    assert (min(classes["narrow"], classes["wide"]) > 1000) == (w == 64)
+    pool = [ps[i] if kind[i] != 4 or w == 32 else ps[i] & _M32
+            for i in range(300)]
+    pool[:3] = [0, 1, 2]
+    comps = cs[:64]
+    comps[:2] = [0, 1]
+    comps[2:20] = [c // q * q for c, q in zip(comps[2:20], pool[5:23])]
+    dtype = torch.int32 if w == 32 else torch.int64
+    mask, _ = _divmask_model(comps, pool, w)
+    np.testing.assert_array_equal(
+        np.asarray(mask, bool),
+        tref.divisibility_mask_ref(torch.tensor(comps, dtype=dtype),
+                                   torch.tensor(pool, dtype=dtype)).numpy())
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_flat_mask_layout_fills_the_card(w):
+    """At every shape the sharded refresh of ``case_batching``'s full trace
+    gives the mask (256 x 512 to 4096 x 4096), the launch covers the pool
+    with whole warps, gives every SM a block, and stores each row's span
+    as whole vectors; a pool one entry short takes byte stores only at
+    the ragged ends."""
+    for n, np_ in [(256, 512), (512, 512), (512, 1024), (1024, 1024),
+                   (1024, 2048), (2048, 2048), (2048, 4096), (4096, 4096)]:
+        E, threads, chunks, rows = _divmask_layout(n, np_, w)
+        assert threads % 32 == 0 and chunks * threads * E >= np_
+        assert (chunks - 1) * threads * E < np_
+        assert -(-n // rows) * chunks >= _SMS and 1 <= rows <= 32
+        assert np_ % E == 0                   # every span whole and aligned
 
 
 # --------------------------------------------------------------------------- #

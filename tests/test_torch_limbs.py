@@ -8,6 +8,7 @@ recipe on the reference's primitives.  The port runs with
 
 from torch_parity import first_primes
 
+import itertools
 import math
 
 import jax.numpy as jnp
@@ -476,6 +477,309 @@ def test_kernel_models_match_plain_versions(n_limbs):
     np.testing.assert_array_equal(
         _gcd_model(a, b, pool),
         tref.gcd_limbs_ref(_t(a), _t(b), _t(pool)).numpy())
+
+
+# The limb factorization's residual (csrc/factorize_limbs.cu): exact
+# division by the odd part q, least significant limb first (Jebelean), a
+# batch of up to 32 hits as a pipeline across a warp's lanes, the powers
+# of two shifted out at the end of a batch, and, only where a hit of the
+# batch no longer divides the running residual, the batch floor-divided
+# by the same pipeline run from the most significant limb.
+
+def _limbs_of(x, n_limbs):
+    return [(x >> (32 * k)) & _M32 for k in range(n_limbs)]
+
+
+def _hit_constants(p):
+    """A hit's (q, q**-1 mod 2**32, t) from ``pfcs::entry_constants``."""
+    q, qneg_inv, t, _ = _entry_constants(p)
+    return q, -qneg_inv & _M32, t
+
+
+def _exact_div(limbs, q, qinv):
+    """One lane of ``exact_pipeline()``: ``(quotient limbs, final carry)``
+    of the limbs divided by odd q; the carry is 0 exactly when q divides,
+    and the quotient is then exact."""
+    carry, out = 0, []
+    for s in limbs:
+        x = (s - carry) & _M32
+        borrow = int(s < carry)
+        out.append(x * qinv & _M32)
+        carry = (out[-1] * q >> 32) + borrow
+        assert carry <= q
+    return out, carry
+
+
+def _pipeline(cur, n, lanes):
+    """``exact_pipeline()`` step by step: at step s lane h takes limb
+    s - h from lane h - 1's output of the step before (the shuffle), lane
+    0 from the residual; ``(the last lane's limbs, each lane's carry)``."""
+    m = len(lanes)
+    out, carry, result = [0] * 32, [0] * 32, [0] * n
+    for s in range(n + m - 1):
+        before = out[:]
+        for lane in range(32):
+            k = s - lane
+            if lane == 0:
+                inp = cur[k] if k < n else 0
+            else:
+                inp = before[lane - 1]
+            if lane < m and 0 <= k < n:
+                q, qinv = lanes[lane]
+                x = (inp - carry[lane]) & _M32
+                borrow = int(inp < carry[lane])
+                out[lane] = x * qinv & _M32
+                carry[lane] = (out[lane] * q >> 32) + borrow
+                if lane == m - 1:
+                    result[k] = out[lane]
+    return result, carry[:m]
+
+
+def _shift_out(limbs, n, T):
+    """``shift_out()``: the n limbs shifted right by T bits, limb k from
+    limbs k + T // 32 and the one above it."""
+    w, b = T >> 5, T & 31
+    out = list(limbs)
+    for k in range(n):
+        lo = limbs[k + w] if k + w < n else 0
+        hi = limbs[k + w + 1] if k + w + 1 < n else 0
+        out[k] = (lo >> b | hi << (32 - b)) & _M32 if b else lo
+    return out
+
+
+def _floor_pipeline(cur, n, ps):
+    """``floor_pipeline()`` step by step: lane h floor-divides by hit h
+    the limbs lane h - 1 passes it, most significant first, each step a
+    64-by-32 division by the reciprocal floor((2**64 - 1) / p) with at
+    most one correction; the last lane's limbs."""
+    m = len(ps)
+    mus = [_M64 // p for p in ps]
+    out, rem, result = [0] * 32, [0] * 32, [0] * n
+    for s in range(n + m - 1):
+        before = out[:]
+        for lane in range(min(m, 32)):
+            j = s - lane
+            if not 0 <= j < n:
+                continue
+            inp = cur[n - 1 - j] if lane == 0 else before[lane - 1]
+            c = rem[lane] << 32 | inp
+            assert c < ps[lane] << 32
+            quo = c * mus[lane] >> 64
+            r = c - quo * ps[lane]
+            if r >= ps[lane]:
+                r -= ps[lane]
+                quo += 1
+            assert r < ps[lane] and quo == c // ps[lane]
+            out[lane], rem[lane] = quo, r
+            if lane == m - 1:
+                result[n - 1 - j] = quo
+    return result
+
+
+def _divide_batch(r, ps, tally):
+    """``divide_batch()``: the residual ``r`` divided by the hits ``ps``
+    (at most 32, in pool order).  The exact pipeline runs over them all;
+    where every lane's carry is zero and the powers of two sum to at most
+    the residual's trailing zero bits, its result is shifted by that sum;
+    else the batch is floor-divided from the residual it started from."""
+    consts = [_hit_constants(p) for p in ps]
+    n = r["n"]
+    out, carries = _pipeline(r["cur"], n, [(q, i) for q, i, _ in consts])
+    T = sum(t for _, _, t in consts)
+    exact = not any(carries) and T <= r["tz"]
+    if not exact:
+        out = _floor_pipeline(r["cur"], n, ps)
+    tally["exact" if exact else "floor"] += 1
+    other = r["other"]
+    other[n:r["n_other"]] = [0] * max(r["n_other"] - n, 0)
+    other[:n] = out
+    assert not any(other[n:])
+    r["cur"], r["other"] = (_shift_out(other, n, T) if exact else other,
+                            r["cur"])
+    r["n_other"] = n
+    r["n"], r["tz"] = _row_counts(r["cur"])
+
+
+def _factorize_limbs_model(limbs, pool):
+    """``factorize_limbs_kernel``: the mask by the Montgomery test; each
+    nonzero row divided by its hits piece by piece (1024 entries), in
+    pool order, in batches of up to 32; ``(mask, residual, tally)``."""
+    mask = _divmask_model(limbs, pool)
+    residual = np.zeros_like(limbs)
+    tally = {"exact": 0, "floor": 0, "batches": 0}
+    for i, row in enumerate(limbs.tolist()):
+        n, tz = _row_counts(row)
+        r = {"cur": list(row), "other": [0] * len(row), "n": n, "tz": tz,
+             "n_other": 0}
+        for base in range(0, len(pool) if n else 0, 1024):
+            hits = [int(pool[j]) for j in range(base, min(base + 1024,
+                                                          len(pool)))
+                    if mask[i, j]]
+            for b0 in range(0, len(hits), 32):
+                _divide_batch(r, hits[b0:b0 + 32], tally)
+                tally["batches"] += 1
+        residual[i] = r["cur"]
+    return mask, residual, tally
+
+
+_EDGE_ENTRIES = (2, 3, 4, 6, 9, 2**30, 2_147_483_647, 2_147_483_629,
+                 1_000_003, 3 * 2**29)
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 3, 8, 32])
+def test_exact_division_model_on_edge_limbs(n_limbs):
+    """Every edge row (all limbs 0xFFFFFFFF, a top nonzero limb at limb 0,
+    a middle one and the last, multiples of 2**30, 2147483647 and
+    2147483629, 0 and 1) against every edge entry: shifting out 2**t and
+    dividing by the odd part leaves carry 0 exactly when p divides, and
+    then the quotient is ``//``; the multiple of p below the row always
+    divides exactly."""
+    rng = np.random.default_rng(n_limbs)
+    rows = [r.tolist() for r in _adversarial_limbs(n_limbs, np.asarray(
+        _EDGE_ENTRIES, dtype=np.int64), rng, n=16)]
+    rows += [_limbs_of(2**30 * k, n_limbs) for k in (1, 3, 2_147_483_647)]
+    top = 1 << (32 * n_limbs)
+    exact = 0
+    for p in _EDGE_ENTRIES:
+        q, qinv, t = _hit_constants(p)
+        assert q << t == p and q * qinv & _M32 == 1
+        for row in rows:
+            x = _x_of(row)
+            for y in (x, x // p * p):
+                n, tz = _row_counts(_limbs_of(y, n_limbs))
+                quo, carry = _exact_div(_limbs_of(y >> t, n_limbs)[:n], q,
+                                        qinv)
+                divides = carry == 0 and t <= tz
+                assert divides == (y % p == 0), (y, p)
+                if divides:
+                    assert _x_of(quo) == y // p < top
+                    exact += 1
+    assert exact > len(rows) * len(_EDGE_ENTRIES)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_exact_division_model_on_random_draws(seed):
+    """4,000 seeded draws per seed at 1 to 64 limbs: entries in [2, 2**31)
+    (odd, even, powers of two), values random and their multiples of the
+    entry; the exact division equals ``//`` on the multiples and keeps a
+    carry on the others; a shift of the limbs equals ``>>``."""
+    rng = np.random.default_rng(2000 + seed)
+    for i in range(4000):
+        n_limbs = int(rng.integers(1, 65))
+        x = int.from_bytes(rng.bytes(4 * n_limbs), "little")
+        p = int(rng.integers(2, 2**31))
+        if i % 3 == 1:
+            p &= ~0xFF
+        elif i % 3 == 2:
+            p = 1 << int(rng.integers(1, 31))
+        p = max(p, 2)
+        q, qinv, t = _hit_constants(p)
+        for y in (x, x // p * p):
+            quo, carry = _exact_div(_limbs_of(y >> t, n_limbs), q, qinv)
+            if (y >> t) % q == 0:
+                assert carry == 0 and _x_of(quo) == (y >> t) // q
+            else:
+                assert carry != 0
+        T = int(rng.integers(0, 32 * n_limbs))
+        assert _x_of(_shift_out(_limbs_of(x, n_limbs), n_limbs, T)) == x >> T
+
+
+def test_exact_pipeline_model_equals_one_lane_after_another():
+    """The pipeline's wavefront (lane h on limb s - h at step s) gives the
+    same limbs and carries as dividing by each hit in turn, for 1 to 32
+    hits over 1 to 40 limbs, exact and not."""
+    rng = np.random.default_rng(11)
+    primes = [int(x) for x in first_primes(400)[1:]]
+    for _ in range(120):
+        m = int(rng.integers(1, 33))
+        n = int(rng.integers(1, 41))
+        qs = [int(x) for x in rng.choice(primes, size=m)]
+        x = int.from_bytes(rng.bytes(4 * n), "little")
+        if rng.random() < 0.5:
+            x = x // math.prod(qs) * math.prod(qs)
+        lanes = [_hit_constants(q)[:2] for q in qs]
+        data, carries = _limbs_of(x, n), []
+        for q, qinv in lanes:
+            data, c = _exact_div(data, q, qinv)
+            carries.append(c)
+        assert _pipeline(_limbs_of(x, n), n, lanes) == (data, carries)
+
+
+def test_floor_pipeline_model_equals_floor_divisions():
+    """The floor pipeline (lane h floor-divides by hit h, most significant
+    limb first, by a reciprocal with one correction) gives c // p_0 //
+    p_1 ... for 1 to 32 hits over 1 to 40 limbs, with hits at the edges
+    (2, 4, 6, 2**30, the largest primes below 2**31, a hit twice) and rows
+    of all-ones limbs."""
+    rng = np.random.default_rng(12)
+    for i in range(150):
+        m = int(rng.integers(1, 33))
+        n = int(rng.integers(1, 41))
+        ps = [int(x) for x in rng.integers(2, 2**31, size=m)]
+        ps[:3] = [_EDGE_ENTRIES[i % len(_EDGE_ENTRIES)], ps[-1], 2][:m]
+        x = (int.from_bytes(rng.bytes(4 * n), "little") if i % 4
+             else (1 << (32 * n)) - 1)
+        want = x
+        for p in ps:
+            want //= p
+        assert _x_of(_floor_pipeline(_limbs_of(x, n), n, ps)) == want
+
+
+def _walk_inputs(n_limbs, n_rows, rng, duplicate=True):
+    """Rows and a pool as ``chip_smoke.synthetic_limb_inputs`` makes them,
+    fewer rows: 1016 distinct primes above 1000, 3, 5, the adversarial
+    entries (2, 4, 6, 2**30, the largest primes below 2**31), pads, and
+    (``duplicate``) the first entry twice; rows are products of up to 60
+    distinct live entries, some times 9, random rows, 0, 1, 45 and edge
+    rows."""
+    bits = 32 * n_limbs
+    primes = np.asarray([q for q in range(1001, 1 << 14, 2)
+                         if all(q % d for d in range(3, int(q**0.5) + 1, 2))])
+    pool = np.concatenate([rng.choice(primes, size=1016, replace=False),
+                           [3, 5, *ADVERSARIAL_POOL, 0, 1, 0, 1, 0, 7]])
+    if duplicate:
+        pool[-1] = pool[0]
+    pool = rng.permutation(pool).astype(np.int64)
+    live = pool[pool > 1]
+    vals = []
+    for i in range(n_rows):
+        if i % 5 == 4:
+            vals.append(int.from_bytes(rng.bytes(4 * n_limbs), "little"))
+            continue
+        v = 1
+        for q in rng.choice(live, size=int(rng.integers(1, 60)),
+                            replace=False):
+            if (v * int(q)).bit_length() < bits:
+                v *= int(q)
+        if i % 5 == 3 and (v * 9).bit_length() < bits:
+            v *= 9
+        vals.append(v)
+    vals[:4] = [0, 1, 0, 45]
+    edge = [_x_of(r) for r in
+            _adversarial_limbs(n_limbs, pool, rng, n=12).tolist()]
+    vals[6:6 + len(edge)] = edge
+    return pack_limbs(vals[:n_rows], n_limbs), pool
+
+
+@pytest.mark.parametrize("n_limbs", [2, 3, 8, 32])
+def test_factorize_limbs_walk_model_matches_plain_version(n_limbs):
+    """The limb factorization as the kernel computes it (Montgomery mask,
+    hits per 1024-entry piece in batches of 32 in pool order, exact
+    division where the batch divides the residual, floor division where
+    it does not) equals the plain version on pools with a duplicate
+    entry, 2 / 4 / 6 and rows times 9; those take floor batches, and a
+    pool of distinct entries none."""
+    rng = np.random.default_rng(40 + n_limbs)
+    for duplicate in (True, False):
+        limbs, pool = _walk_inputs(n_limbs, 48, rng, duplicate)
+        if not duplicate:     # distinct primes only: the registry contract
+            pool = np.where(np.isin(pool, [4, 6, 2**30]), 0, pool)
+        mask, residual, tally = _factorize_limbs_model(limbs, pool)
+        m_ref, r_ref = tref.factorize_limbs_ref(_t(limbs), _t(pool))
+        np.testing.assert_array_equal(mask, m_ref.numpy())
+        np.testing.assert_array_equal(residual, r_ref.numpy())
+        assert tally["exact"] > 24 and tally["batches"] > 0
+        assert (tally["floor"] > 0) == duplicate, tally
 
 
 # --------------------------------------------------------------------------- #
