@@ -4,22 +4,22 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It puts ``<root>/src`` on ``sys.path`` itself, builds the port's six CUDA
-kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
-source, started together), and drives the port's serving path and its
-wide (multi-limb) path on the card in phases, each printing one JSON line
-with its seconds (the sharded runs also report where their wall time
-went, ``sharded_time_split``):
+It puts ``<root>/src`` on ``sys.path`` itself, builds the port's eight
+CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process
+per source, started together), and drives the port's serving path, its
+wide (multi-limb) path and its Table-1 trace engine on the card in
+phases, each printing one JSON line with its seconds (the sharded runs
+also report where their wall time went, ``sharded_time_split``):
 
   device         the card, the torch and CUDA versions, the interpreter,
                  the ``nvcc`` found, the build directory, and
                  ``nvidia-smi``'s name and power limit (``null`` with the
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
-  build          the six kernels and an empty one, with ``-Xptxas -v``'s
+  build          the eight kernels and an empty one, with ``-Xptxas -v``'s
                  register, shared-memory and spill lines (for the
-                 redesigned kernels, ``REDESIGNED``, under the name of
-                 each template instance), and the launch floor: the
+                 kernels of ``NAMED_INSTANCES``, under the name of each
+                 template instance), and the launch floor: the
                  graph-replay time of the empty kernel launched through
                  the same ``ctypes`` binding (``launch_floor_ms``,
                  repeated in every kernel line);
@@ -69,12 +69,39 @@ went, ``sharded_time_split``):
                  run's, each kernel the sharded runs launched held against
                  its plain version; and ``case_batching``'s smoke trace with
                  ``kv="sharded"``, ``max_bits`` 128, against ``kv="vec"``;
-  launcher_wide  the launcher with ``--max-bits 1024``.
+  launcher_wide  the launcher with ``--max-bits 1024``;
+  engine_check   the two engine kernels (``engine_baseline``: LRU, FIFO,
+                 2Q, ARC, LIRS with the tier shadow; ``engine_pfcs``)
+                 against their plain versions (the step functions run as
+                 a Python loop) on the card, every counter and the whole
+                 final state: a ragged batch of four traces of the port's
+                 generators (about 512 accesses) through every system,
+                 PFCS without prefetch, with prefetch on every access and
+                 with a victim window wider than every level; levels of
+                 capacity 1 (2Q holds two keys, as in the reference); a
+                 trace that drives ARC's p to 0 and to c (p bit for bit);
+  table1         the paper's Table 1 at ``benchmarks/table1.py``'s
+                 configuration, unreduced (three workloads, three trials
+                 each): every system through ``simulate_batch`` on the
+                 card, PFCS's tables from ``discover="kernel"``; every
+                 baseline trace's counters equal to the scalar oracle,
+                 PFCS's on trial 0, the seed-0 hit counts equal to
+                 ``TABLE1_SEED0``; per workload and system the hit rate,
+                 the engine's wall, its kernel time (CUDA events), its
+                 bound, accesses/s, the oracle's host seconds, the table
+                 build's host seconds and ``derive_table1_row`` against
+                 LRU; the flat mask and factorization held against their
+                 plain versions at every shape the tables launched them
+                 at.
 
 Then the table of the reference's six Pallas kernels, the card's name and
 power limit, the ``kernels`` line (for the flat kernels: launches on the
 ``case_serving`` sharded run and times at that run's shapes; for the limb
-kernels: the same from the ``scale`` run) and, last,
+kernels: the same from the ``scale`` run; for the engine kernels:
+launches on the ``table1`` run, ``path_ms`` / ``path_bound_ms`` the sums
+of their CUDA-event times and bounds there, and ``ms`` / ``plain_ms`` /
+``bound_ms`` on ``engine_check``'s check batch, summed over the five
+baseline systems for ``engine_baseline``) and, last,
 ``{"ok": true, "device": {...}}``.
 
 Every path that launches the kernels holds each kernel against its plain
@@ -150,6 +177,48 @@ PORTED = [name for name, _, src in TPU_KERNELS if src]
 FLAT = ["divisibility_mask", "factorize_squarefree", "gcd"]
 #: the multi-limb kernels of wide registries
 LIMB = ["divisibility_mask_limbs", "factorize_limbs", "gcd_limbs"]
+
+#: the trace engine's kernels (no Pallas kernel of the reference: each
+#: replaces a ``lax.scan`` driver) and the reference code they replace
+ENGINE_KERNELS = [
+    ("engine_baseline", "src/repro/core/engine/batch.py:47",
+     "src/repro_torch/kernels/csrc/engine_baseline.cu"),
+    ("engine_pfcs", "src/repro/core/engine/batch.py:82",
+     "src/repro_torch/kernels/csrc/engine_pfcs.cu"),
+]
+ENGINE = [name for name, _, _ in ENGINE_KERNELS]
+#: the engine's systems: the baselines (``engine_baseline``) and PFCS
+BASELINES = ("lru", "fifo", "2q", "arc", "lirs")
+
+#: ``benchmarks/table1.py``'s level capacities and workloads (lines
+#: 27-55), unreduced, and its documented ``--trials 3`` (seeds 0-2)
+TABLE1_CAPS = (("L1", 64), ("L2", 256), ("L3", 2048))
+TABLE1_TRIALS = 3
+TABLE1_WORKLOADS = {
+    "db_join": ("db_join_trace", dict(n_orders=4000, n_customers=600,
+                                      n_items=1200, n_queries=20000)),
+    "ml_epoch": ("ml_epoch_trace", dict(n_samples=2500, n_feature_rows=600,
+                                        n_epochs=3)),
+    "hft": ("hft_trace", dict(n_instruments=2500, n_corr_groups=350,
+                              n_events=20000)),
+}
+#: seed-0 hits / demand accesses of each workload and system, from the
+#: scalar oracles (``simulate_baseline``, ``simulate_pfcs``)
+TABLE1_SEED0 = {
+    "db_join": {"lru": (15761, 20000), "fifo": (15028, 20000),
+                "2q": (14483, 20000), "arc": (15923, 20000),
+                "lirs": (15920, 20000), "pfcs": (17977, 20000)},
+    "ml_epoch": {"lru": (23649, 30000), "fifo": (23295, 30000),
+                 "2q": (22516, 30000), "arc": (24023, 30000),
+                 "lirs": (24025, 30000), "pfcs": (24565, 30000)},
+    "hft": {"lru": (18272, 20000), "fifo": (18272, 20000),
+            "2q": (17458, 20000), "arc": (18272, 20000),
+            "lirs": (18272, 20000), "pfcs": (19220, 20000)},
+}
+#: ``engine_check``'s level capacities (those of ``tests/test_engine.py``)
+#: and its trace length
+CHECK_CAPS = (("L1", 8), ("L2", 24), ("L3", 64))
+CHECK_LENGTH = 512
 
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
@@ -1090,6 +1159,8 @@ class Context:
         self.universe = None          # case_scale's registry
         self.scale_launches = None
         self.scale_rows = []
+        self.engine_check = {}        # engine kernel -> its check-batch times
+        self.engine_path = {}         # engine kernel -> its table1 launches
 
 
 def phase_device(ctx: Context) -> dict:
@@ -1106,17 +1177,17 @@ def phase_device(ctx: Context) -> dict:
 
 #: the kernels whose compiled functions the build line names (the
 #: ``-Xptxas -v`` lines of each template instance follow its name)
-REDESIGNED = ("divisibility_mask", "factorize_squarefree", "gcd",
-              "factorize_limbs")
+NAMED_INSTANCES = ("divisibility_mask", "factorize_squarefree", "gcd",
+                   "factorize_limbs", "engine_baseline")
 
 
 def phase_build(ctx: Context) -> dict:
     global LAUNCH_FLOOR_MS
     from repro_torch import kernels
 
-    if sorted(kernels.KERNELS) != sorted(PORTED):
+    if sorted(kernels.KERNELS) != sorted(PORTED + ENGINE):
         raise AssertionError(f"kernels {sorted(kernels.KERNELS)} != "
-                             f"{sorted(PORTED)}")
+                             f"{sorted(PORTED + ENGINE)}")
     floor = launch_floor_kernel()
     nvcc_s = kernels.build_all(extra=[floor])
     dev = torch.device(DEVICE)
@@ -1129,7 +1200,7 @@ def phase_build(ctx: Context) -> dict:
             "ptxas": {name: [ln.strip() for ln in
                              k.build_log().splitlines()
                              if "registers" in ln or "spill" in ln
-                             or (name in REDESIGNED
+                             or (name in NAMED_INSTANCES
                                  and "entry function" in ln)]
                       for name, k in kernels.KERNELS.items()}}
 
@@ -1492,6 +1563,447 @@ def phase_launcher_wide(ctx: Context) -> dict:
                           required=WIDE_SHARDED)
 
 
+# --------------------------------------------------------------------------- #
+# the Table-1 trace engine                                                    #
+# --------------------------------------------------------------------------- #
+
+def tree_diff(a, b, path: str = "") -> list:
+    """The paths at which two results of the engine's scans differ:
+    counters and final state, int arrays as int64, floats by their bits
+    (ARC's p); ``visits`` (the kernel's own count) is not compared."""
+    if isinstance(a, dict):
+        return [p for k in a if k != "visits"
+                for p in tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (tuple, list)):
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in tree_diff(x, y, f"{path}/{i}")]
+    x, y = a.cpu(), b.cpu()
+    if x.dtype == torch.float64:
+        same = torch.equal(x.view(torch.int64), y.view(torch.int64))
+    else:
+        same = x.shape == y.shape and torch.equal(x.to(torch.int64),
+                                                  y.to(torch.int64))
+    return [] if same else [path]
+
+
+def engine_bytes(name: str, args: tuple, out: dict) -> int:
+    """Bytes an engine scan must move: its inputs read once (the accesses
+    and, for PFCS, the three tables) and its outputs written once (the
+    counters, the final state, ARC's p and the visit counts)."""
+    n = 4 * args[0].numel()
+    for v in out.values():
+        if isinstance(v, torch.Tensor):
+            n += v.numel() * v.element_size()
+    for _, v in state_leaves(out["state"]):
+        n += v.numel() * v.element_size()
+    if name == "engine_pfcs":
+        n += sum(t.numel() * t.element_size() for t in args[-3:])
+    return n
+
+
+def state_leaves(tree, prefix=()):
+    """``(path, tensor)`` for every array of a nested state."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from state_leaves(v, prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from state_leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+class EngineCapture:
+    """Every engine scan of a run on the card: which kernel and system,
+    the batch's shape, the kernel's device time by CUDA events around its
+    launch, the slot words its scans read (``visits``) and the bytes it
+    must move, hence its bound.  The wrapped functions call the
+    originals, whose launch counts are unchanged."""
+
+    def __init__(self):
+        from repro_torch.kernels import engine
+
+        self.calls, self._events, self._undo = [], [], []
+        for fname, kname in (("baseline_scan", "engine_baseline"),
+                             ("pfcs_scan", "engine_pfcs")):
+            self._wrap_scan(engine, fname, kname)
+        for k in (engine.ENGINE_BASELINE, engine.ENGINE_PFCS):
+            self._wrap_launch(k)
+
+    def _wrap_scan(self, mod, fname, kname):
+        orig = getattr(mod, fname)
+
+        def wrapped(*args, **kw):
+            n_events = len(self._events)
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            ms = sum(a.elapsed_time(b) for a, b in self._events[n_events:])
+            n_bytes = engine_bytes(kname, args, out)
+            # (the plain version, on the CPU, counts no visits)
+            ops = 0 if out["visits"] is None else int(out["visits"].sum())
+            b_ms, b_by = bound_ms(n_bytes, ops)
+            self.calls.append({
+                "name": kname,
+                "system": args[1] if kname == "engine_baseline" else "pfcs",
+                "shape": list(args[0].shape), "ms": ms, "bytes": n_bytes,
+                "visits": ops, "bound_ms": b_ms, "bound_by": b_by})
+            return out
+
+        setattr(mod, fname, wrapped)
+        self._undo.append((mod, fname, orig))
+
+    def _wrap_launch(self, kernel):
+        orig = kernel.launch
+
+        def launch(device, *args):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            orig(device, *args)
+            stop.record()
+            self._events.append((start, stop))
+
+        kernel.launch = launch
+        self._undo.append((kernel, "launch", None))
+
+    def close(self):
+        for owner, name, orig in reversed(self._undo):
+            if orig is None:
+                del owner.launch          # back to the class's method
+            else:
+                setattr(owner, name, orig)
+
+
+def _make_trace(gen: str, **kw):
+    from repro_torch.core import traces
+
+    return getattr(traces, gen)(**kw)
+
+
+def check_traces(length: int = None) -> list:
+    """The check batch: the port's generators at about ``length``
+    (default ``CHECK_LENGTH``) accesses, ragged (the last two shorter,
+    padded with -1 in the batch)."""
+    length = length or CHECK_LENGTH
+    return [_make_trace("zipf_trace", n_keys=400, n_accesses=length,
+                        seed=1),
+            _make_trace("db_join_trace", n_orders=150, n_customers=40,
+                        n_items=80, n_queries=length, seed=2),
+            _make_trace("scan_trace", n_keys=length // 3 - 10, n_passes=3),
+            _make_trace("graph_walk_trace", n_keys=300,
+                        relationship_density=0.7,
+                        n_accesses=length * 3 // 5, seed=4)]
+
+
+def arc_swing_accesses(c: int, length: int = 200) -> np.ndarray:
+    """Accesses that drive ARC's p (over ``c`` slots) to 0 and to ``c``
+    and leave it at a value with a rounding history: loops over 2c keys
+    (B1 ghost hits raise p), a hot set touched twice among one-offs (B2
+    ghost hits lower it) and random keys, in seeded phases."""
+    out = []
+    for seed in (1, 6):
+        rng = np.random.default_rng(seed)
+        part = []
+        while len(part) < length:
+            phase = int(rng.integers(3))
+            if phase == 0:
+                part += list(range(2 * c)) * 2
+            elif phase == 1:
+                hot = rng.integers(100, 100 + c, size=c)
+                part += ([int(x) for x in np.repeat(hot, 2)]
+                         + list(range(200, 200 + c)))
+            else:
+                part += [int(x) for x in rng.integers(0, 3 * c, size=2 * c)]
+        out += part[:length]
+    return np.asarray(out, dtype=np.int64)
+
+
+def arc_p_path(accesses: np.ndarray, c: int) -> list:
+    """ARC's p after every access, by the plain step on the CPU."""
+    from repro_torch.core.engine.policies_vec import VEC_POLICIES
+
+    s, step = VEC_POLICIES["arc"](c, 0, 1, "cpu")
+    out = []
+    for t, k in enumerate(accesses.tolist()):
+        s, _ = step(s, torch.tensor([k], dtype=torch.int32), t * 4)
+        out.append(float(s["p"][0]))
+    return out
+
+
+def batch_inputs(traces):
+    """``(accesses (B, T) int32 on DEVICE, n_keys)``, -1 padded, as
+    ``simulate_batch`` makes them."""
+    from repro_torch.core.engine.batch import key_space, stack_accesses
+
+    return stack_accesses(traces, DEVICE), key_space(traces)
+
+
+def pfcs_table_inputs(traces, caps, n_keys: int) -> tuple:
+    """The three PFCS tables of ``traces`` (host discovery, budget 4),
+    stacked on DEVICE as ``simulate_batch`` hands them to ``pfcs_scan``."""
+    from repro_torch.core.engine import pfcs_tables
+    from repro_torch.core.engine.batch import stack_tables
+
+    return stack_tables([pfcs_tables(tr, caps, n_keys=n_keys, device=DEVICE)
+                         for tr in traces], DEVICE)
+
+
+def check_engine(kernel_name: str, args: tuple) -> dict:
+    """One engine scan against its plain version on the same inputs on
+    the card, every counter and the whole final state (exact, or raise);
+    the kernel's device time (the least of three runs, CUDA events), the
+    plain version's (host clock, synchronized), the slot words scanned
+    and the bound."""
+    from repro_torch.kernels import engine
+
+    fname = {"engine_baseline": "baseline_scan",
+             "engine_pfcs": "pfcs_scan"}[kernel_name]
+    plain = getattr(engine, fname + "_ref")
+    cap = EngineCapture()
+    try:
+        outs = [getattr(engine, fname)(*args) for _ in range(3)]
+    finally:
+        cap.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = tree_diff(want, outs[0])
+    if bad:
+        raise AssertionError(f"{kernel_name} {args[1:2]}: kernel != plain "
+                             f"at {bad[:6]}")
+    best = min(cap.calls, key=lambda c: c["ms"])
+    return {**best, "max_abs_err": 0, "plain_ms": plain_ms,
+            "out": outs[0]}
+
+
+def phase_engine_check(ctx: Context) -> dict:
+    """Both engine kernels against their plain versions on the card (the
+    step functions run as a Python loop over the trace): the check batch
+    (four traces of the port's generators, ragged) through every system
+    and PFCS's variants (a victim window wider than every level, no
+    prefetch, prefetch on every access); levels of capacity 1 (2Q holds
+    two keys); a trace that drives ARC's p to 0 and to c (p compared bit
+    for bit).  The check batch's times are the ``kernels`` line's."""
+    caps = [c for _, c in CHECK_CAPS]
+    traces = check_traces()
+    acc, n_keys = batch_inputs(traces)
+    lines, rows = [], {name: [] for name in ENGINE}
+
+    def record(label, kernel_name, args, timed=False):
+        r = check_engine(kernel_name, args)
+        out = r.pop("out")
+        line = {"check": label, **{k: v for k, v in r.items()
+                                   if k != "name"}}
+        lines.append(line)
+        if timed:
+            rows[kernel_name].append(r)
+        return out
+
+    for policy in BASELINES:
+        record(f"{policy} check batch", "engine_baseline",
+               (acc, policy, caps, n_keys), timed=True)
+    tables = pfcs_table_inputs(traces, CHECK_CAPS, n_keys)
+    record("pfcs check batch", "engine_pfcs",
+           (acc, caps, n_keys, 4, 8, True, False, *tables), timed=True)
+    for label, window, enable, always in (
+            ("pfcs enable_prefetch=False", 8, False, False),
+            ("pfcs prefetch_trigger='always'", 8, True, True)):
+        record(label, "engine_pfcs",
+               (acc, caps, n_keys, 4, window, enable, always, *tables))
+    # a window wider than every level (C + 1 = 5, 9, 17): the whole level
+    narrow = (("L1", 4), ("L2", 8), ("L3", 16))
+    record("pfcs victim_window 100 > C+1", "engine_pfcs",
+           (acc, [c for _, c in narrow], n_keys, 4, 100, True, False,
+            *pfcs_table_inputs(traces, narrow, n_keys)))
+
+    # levels of capacity 1; the first trace opens with 0, 1, 0, after
+    # which 2Q's A1in and Am each hold a key for good
+    from repro_torch.core import Trace
+
+    one = check_traces(200)[:2]
+    one[0] = Trace(name="0,1,0 + zipf", accesses=np.concatenate(
+        [[0, 1, 0], one[0].accesses]), relationships=one[0].relationships,
+        n_keys=one[0].n_keys)
+    acc1, k1 = batch_inputs(one)
+    held = {}
+    for policy in BASELINES:
+        out = record(f"{policy} capacity 1", "engine_baseline",
+                     (acc1, policy, [1], k1))
+        pol = out["state"]["pol"]
+        keys = [v for name, v in pol.items()
+                if name in ("keys", "a1k", "amk", "t1k", "t2k")]
+        held[policy] = (int(sum((k != -1).sum(dim=1) for k in keys)[0])
+                        if keys else int(pol["n_res"][0]))
+    if held["2q"] != 2 or any(v != 1 for p, v in held.items() if p != "2q"):
+        raise AssertionError(f"capacity 1: keys held {held}; 2Q holds 2 in "
+                             f"the reference, every other policy 1")
+    record("pfcs capacity 1", "engine_pfcs",
+           (acc1, [1], k1, 4, 8, True, False,
+            *pfcs_table_inputs(one, (("ONE", 1),), k1)))
+
+    # ARC's p driven to 0 and to c
+    swing_caps = [4, 12]
+    c = sum(swing_caps)
+    swing = arc_swing_accesses(c)
+    path = arc_p_path(swing, c)
+    if min(path) != 0.0 or max(path) != float(c):
+        raise AssertionError(f"the swing trace keeps p in "
+                             f"[{min(path)}, {max(path)}], not [0, {c}]")
+    out = record("arc p swing", "engine_baseline",
+                 (torch.from_numpy(swing.astype(np.int32)[None]).to(DEVICE),
+                  "arc", swing_caps, int(swing.max()) + 1))
+    p_end = float(out["state"]["pol"]["p"][0])
+    if p_end != path[-1]:
+        raise AssertionError(f"arc p: kernel {p_end!r} != plain {path[-1]!r}")
+
+    ctx.engine_check = {}
+    for name, rs in rows.items():
+        b_ms, b_by = bound_ms(sum(r["bytes"] for r in rs),
+                              sum(r["visits"] for r in rs))
+        ctx.engine_check[name] = {
+            "systems": [r["system"] for r in rs],
+            "shape": rs[0]["shape"],
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return {"checks": lines, "arc_p_range": [min(path), max(path)],
+            "arc_p_end": p_end, "held_at_capacity_1": held,
+            "check_batch": ctx.engine_check}
+
+
+def mean_rows(rows: list) -> dict:
+    """The mean of each numeric field of ``derive_table1_row``'s rows over
+    the trials (None where every trial has None; text from the first)."""
+    out = {}
+    for k, v in rows[0].items():
+        vals = [r[k] for r in rows if r[k] is not None]
+        out[k] = (v if isinstance(v, str) else
+                  float(np.mean(vals)) if vals else None)
+    return out
+
+
+def phase_table1(ctx: Context) -> dict:
+    """The paper's Table 1 on the card at ``benchmarks/table1.py``'s
+    configuration, unreduced: each workload's three trials (seeds 0-2)
+    through every system with ``simulate_batch`` (one launch of the
+    baseline or the PFCS kernel each), PFCS's tables built by
+    ``discover="kernel"`` (the flat mask and factorization kernels, each
+    held against its plain version at every shape it launched at and
+    timed by graph replay).  Every baseline trace's counters equal the
+    port's scalar oracle, PFCS's on trial 0, and the seed-0 hit counts
+    equal ``TABLE1_SEED0``.  Launches are counted from 0 over the whole
+    run."""
+    from repro_torch import kernels
+    from repro_torch.core import (derive_table1_row, simulate_baseline,
+                                  simulate_pfcs)
+    from repro_torch.core.engine import pfcs_tables, simulate_batch
+    from repro_torch.core.engine.batch import key_space
+
+    systems = BASELINES + ("pfcs",)
+    capture, engine_cap = Capture(), EngineCapture()
+    results, report = {}, {}
+    try:
+        kernels.reset_launch_counts()
+        for wname, (gen, kw) in TABLE1_WORKLOADS.items():
+            traces = [_make_trace(gen, seed=s, **kw)
+                      for s in range(TABLE1_TRIALS)]
+            n_keys = key_space(traces)
+            t0 = time.perf_counter()
+            tables = [pfcs_tables(tr, TABLE1_CAPS, discover="kernel",
+                                  n_keys=n_keys, device=DEVICE)
+                      for tr in traces]
+            table_s = time.perf_counter() - t0
+            per = {}
+            for system in systems:
+                n_calls = len(engine_cap.calls)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats = simulate_batch(
+                    traces, system, TABLE1_CAPS, device=DEVICE,
+                    tables=tables if system == "pfcs" else None)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                call = engine_cap.calls[n_calls]
+                per[system] = (stats, wall, call)
+            results[wname] = (traces, tables, table_s, per)
+        launches = kernels.launch_counts()
+    finally:
+        engine_cap.close()
+        capture.close()
+
+    for wname, (traces, tables, table_s, per) in results.items():
+        accesses = sum(tr.length for tr in traces)
+        oracle_s, rows = {}, {}
+        for system in systems:
+            stats, wall, call = per[system]
+            t0 = time.perf_counter()
+            if system == "pfcs":
+                want = [simulate_pfcs(traces[0], TABLE1_CAPS)]
+            else:
+                want = [simulate_baseline(system, tr, TABLE1_CAPS)
+                        for tr in traces]
+            oracle_s[system] = time.perf_counter() - t0
+            for w, st in zip(want, stats):
+                if ((w.hits_per_level, w.misses, w.demand_accesses,
+                     w.prefetches_issued, w.prefetches_used,
+                     w.prefetches_true)
+                        != (st.hits_per_level, st.misses,
+                            st.demand_accesses, st.prefetches_issued,
+                            st.prefetches_used, st.prefetches_true)):
+                    raise AssertionError(f"table1 {wname} {system}: engine "
+                                         f"!= scalar oracle")
+            seed0 = TABLE1_SEED0.get(wname, {}).get(system)
+            if seed0 and (stats[0].hits, stats[0].demand_accesses) != seed0:
+                raise AssertionError(
+                    f"table1 {wname} {system}: seed-0 hits "
+                    f"{(stats[0].hits, stats[0].demand_accesses)} != {seed0}")
+            rows[system] = {
+                "hit_rate_mean": float(np.mean([s.hit_rate for s in stats])),
+                "hit_rate_seed0": stats[0].hit_rate,
+                "engine_wall_s": wall, "kernel_ms": call["ms"],
+                "bound_ms": call["bound_ms"], "bound_by": call["bound_by"],
+                "visits": call["visits"], "bytes": call["bytes"],
+                "accesses_per_s_kernel": (accesses / (call["ms"] / 1e3)
+                                          if call["ms"] else None),
+                "accesses_per_s_wall": accesses / wall,
+                "oracle_host_s": oracle_s[system],
+                "oracle_traces": len(want),
+                "oracle_accesses_per_s": (sum(tr.length for tr in
+                                              traces[:len(want)])
+                                          / oracle_s[system]),
+            }
+        lru = per["lru"][0]
+        for system in systems:
+            trial_rows = [derive_table1_row(st, base)
+                          for st, base in zip(per[system][0], lru)]
+            rows[system]["table1_row_vs_lru"] = mean_rows(trial_rows)
+        report[wname] = {"traces": len(traces), "accesses": accesses,
+                         "n_keys": max(tr.n_keys for tr in traces),
+                         "table_build_host_s": table_s, "systems": rows}
+        emit({"phase": "table1_workload", "workload": wname,
+              **report[wname]})
+
+    engine_launches = {name: launches.get(name, 0) for name in ENGINE}
+    if engine_launches != {"engine_baseline": len(BASELINES) * len(results),
+                           "engine_pfcs": len(results)}:
+        raise AssertionError(f"table1: engine launches {engine_launches}")
+    ctx.engine_path = {
+        name: {"launches": engine_launches[name],
+               "path_ms": sum(c["ms"] for c in engine_cap.calls
+                              if c["name"] == name),
+               "path_bound_ms": sum(c["bound_ms"] for c in engine_cap.calls
+                                    if c["name"] == name)}
+        for name in ENGINE}
+    flat = {k: v for k, v in launches.items() if k not in ENGINE}
+    rows = check_path("table1", flat, capture.inputs,
+                      required=["divisibility_mask", "factorize_squarefree"],
+                      shape_launches=capture.launches)
+    return {"launches": launches, "engine": ctx.engine_path,
+            "flat_kernels_exact": [r["name"] for r in rows]}
+
+
 PHASES = [
     ("device", phase_device),
     ("build", phase_build),
@@ -1505,6 +2017,8 @@ PHASES = [
     ("scale_full_scan", phase_scale_full_scan),
     ("serving_wide", phase_serving_wide),
     ("launcher_wide", phase_launcher_wide),
+    ("engine_check", phase_engine_check),
+    ("table1", phase_table1),
 ]
 
 
@@ -1527,6 +2041,17 @@ def report(ctx: Context) -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "launch_floor_ms": r["launch_floor_ms"]})
+    for name, repl, src in ENGINE_KERNELS:
+        chk, path = ctx.engine_check[name], ctx.engine_path[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": path["launches"], "max_abs_err": 0,
+            "ms": chk["ms"], "graph_ms": None, "wrapper_ms": None,
+            "plain_ms": chk["plain_ms"], "bound_ms": chk["bound_ms"],
+            "bound_by": chk["bound_by"], "library_ms": None,
+            "launch_floor_ms": LAUNCH_FLOOR_MS, "shape": chk["shape"],
+            "systems": chk["systems"], "path_ms": path["path_ms"],
+            "path_bound_ms": path["path_bound_ms"]})
     print(ctx.smi or f"{ctx.kind}, power.limit not measured (nvidia-smi "
                      f"failed)", flush=True)
     emit({"kernels": rows})

@@ -3,6 +3,8 @@ built for ``sm_90a`` at first use and bound with ``ctypes``.
 
 ``factorize.py`` — divisibility mask and squarefree factorization
 ``gcd.py``       — elementwise gcd
+``engine.py``    — the trace engine's scans (a batch of traces through a
+                   baseline system or PFCS, one thread block per trace)
 ``ops.py``       — numpy-in, numpy-out wrappers (padding, int32/int64)
 ``ref.py``       — the plain PyTorch versions (CPU tensors, and the
                    yardstick the CUDA kernels are checked against)
@@ -10,13 +12,14 @@ built for ``sm_90a`` at first use and bound with ``ctypes``.
                    launch counters
 """
 
-from . import factorize, gcd, ref
+from . import engine, factorize, gcd, ref
 from .cuda import KERNELS, build_all, launch_counts, reset_launch_counts
 from .ops import (INT32_SAFE_LIMIT, INT64_SAFE_LIMIT, divisibility_scan,
                   factorize_batch, factorize_batch_exact, gcd_batch,
                   gcd_batch_exact)
 
 __all__ = ["KERNELS", "build_all", "launch_counts", "reset_launch_counts",
-           "factorize", "gcd", "ref", "INT32_SAFE_LIMIT", "INT64_SAFE_LIMIT",
+           "engine", "factorize", "gcd", "ref", "INT32_SAFE_LIMIT",
+           "INT64_SAFE_LIMIT",
            "divisibility_scan", "factorize_batch", "factorize_batch_exact",
            "gcd_batch", "gcd_batch_exact"]

@@ -407,3 +407,120 @@ def test_cuda_sharded_serving_matches_cpu(cuda_device, max_bits):
     else:
         assert card.pages.registry.composites_list() == \
             host.pages.registry.composites_list()
+
+
+# --------------------------------------------------------------------------- #
+# the Table-1 engine's kernels                                               #
+# --------------------------------------------------------------------------- #
+
+TABLE1_CAPS = (("L1", 64), ("L2", 256), ("L3", 2048))
+ENGINE_SYSTEMS = ["lru", "fifo", "2q", "arc", "lirs", "pfcs"]
+ENGINE_FIELDS = ("hits_per_level", "misses", "demand_accesses",
+                 "prefetches_issued", "prefetches_used", "prefetches_true")
+
+
+def _engine_fields(st):
+    return tuple(getattr(st, f) for f in ENGINE_FIELDS)
+
+
+def _shortened_table1(length):
+    """The Table-1 workloads at ``benchmarks/table1.py``'s configuration,
+    each trace cut to its first ``length`` accesses (key space and
+    relationships unchanged)."""
+    from repro_torch.core import Trace
+
+    cs = chip_smoke()
+    out = []
+    for gen, kw in cs.TABLE1_WORKLOADS.values():
+        tr = cs._make_trace(gen, seed=0, **kw)
+        out.append(Trace(name=tr.name, accesses=tr.accesses[:length],
+                         relationships=tr.relationships, n_keys=tr.n_keys,
+                         meta=tr.meta))
+    return out
+
+
+def _oracle(system, tr, caps, **kw):
+    from repro_torch.core import simulate_baseline, simulate_pfcs
+
+    if system == "pfcs":
+        return simulate_pfcs(tr, caps, **kw)
+    return simulate_baseline(system, tr, caps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ENGINE_SYSTEMS)
+def test_cuda_engine_at_table1_caps(cuda_device, system):
+    """Shortened Table-1 traces (one batch, ragged: 1500, 1200, 900
+    accesses) at Table-1 capacities: the kernel equals the scalar oracle
+    on every trace, and the plain loop on the CPU counter for counter,
+    final state included (PFCS with kernel-built tables)."""
+    from repro_torch.core.engine import simulate_batch
+    from repro_torch.kernels import engine
+
+    trs = _shortened_table1(1500)
+    for tr, n in zip(trs, (1500, 1200, 900)):
+        tr.accesses = tr.accesses[:n]
+    got = simulate_batch(trs, system, TABLE1_CAPS, device="cuda",
+                         discover="kernel")
+    for tr, st in zip(trs, got):
+        assert _engine_fields(st) == _engine_fields(
+            _oracle(system, tr, TABLE1_CAPS))
+    if system == "pfcs":
+        return
+    cs = chip_smoke()
+    acc, n_keys = cs.batch_inputs(trs)
+    caps = [c for _, c in TABLE1_CAPS]
+    kern = engine.baseline_scan(acc.to(cuda_device), system, caps, n_keys)
+    plain = engine.baseline_scan(acc.cpu(), system, caps, n_keys)
+    torch.cuda.synchronize()
+    assert cs.tree_diff(plain, kern) == []
+
+
+@pytest.mark.gpu
+def test_cuda_engine_edge_cases(cuda_device, monkeypatch):
+    """``chip_smoke.py``'s ``engine_check`` on the card (ragged check
+    batch, PFCS's variants, capacity 1, ARC's p swing), then the same
+    cases against the scalar oracles."""
+    cs = chip_smoke()
+    monkeypatch.setattr(cs, "DEVICE", "cuda")
+    ctx = cs.Context()
+    out = cs.phase_engine_check(ctx)
+    assert out["held_at_capacity_1"]["2q"] == 2
+    assert out["arc_p_range"] == [0.0, 16.0]
+
+    from repro_torch.core import Trace
+    from repro_torch.core.engine import simulate_batch
+
+    trs = cs.check_traces()
+    for system in ENGINE_SYSTEMS:
+        for st, tr in zip(simulate_batch(trs, system, cs.CHECK_CAPS,
+                                         device="cuda"), trs):
+            assert _engine_fields(st) == _engine_fields(
+                _oracle(system, tr, cs.CHECK_CAPS))
+    for kw in (dict(victim_window=100), dict(enable_prefetch=False),
+               dict(prefetch_trigger="always")):
+        for st, tr in zip(simulate_batch(trs, "pfcs", cs.CHECK_CAPS,
+                                         device="cuda", **kw), trs):
+            assert _engine_fields(st) == _engine_fields(
+                _oracle("pfcs", tr, cs.CHECK_CAPS, **kw))
+    swing = cs.arc_swing_accesses(16)
+    tr = Trace(name="swing", accesses=swing, relationships=[],
+               n_keys=int(swing.max()) + 1)
+    for caps in ((("L1", 4), ("L2", 12)), (("ONE", 1),)):
+        for system in ENGINE_SYSTEMS:
+            st = simulate_batch([tr], system, caps, device="cuda")[0]
+            assert _engine_fields(st) == _engine_fields(
+                _oracle(system, tr, caps))
+
+
+@pytest.mark.gpu
+def test_cuda_engine_launches_once_per_batch(cuda_device):
+    from repro_torch.core.engine import simulate_batch
+
+    trs = chip_smoke().check_traces(200)
+    before = launch_counts()
+    simulate_batch(trs, "lirs", TABLE1_CAPS, device="cuda")
+    simulate_batch(trs, "pfcs", TABLE1_CAPS, device="cuda")
+    after = launch_counts()
+    assert after["engine_baseline"] - before["engine_baseline"] == 1
+    assert after["engine_pfcs"] - before["engine_pfcs"] == 1

@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.core.engine.shard import (PrimeSpacePartition,
                                            sharded_successor_table)
-from repro_torch.core import db_join_trace
+from repro_torch.core import (db_join_trace, fast_lru_hit_rate,
+                              run_all_systems)
+from repro_torch.core.engine import simulate_batch, simulate_trace, sweep
 from repro_torch.core.engine.tables import (make_pfcs_cache, pfcs_tables,
                                             related_bulk, successor_table)
 from repro_torch.kernels import ops
@@ -82,6 +84,14 @@ ENTRY_POINTS = {
     "divisibility_scan": lambda **kw: ops.divisibility_scan([6], [2], **kw),
     "factorize_batch": lambda **kw: ops.factorize_batch([6], [2], **kw),
     "gcd_batch": lambda **kw: ops.gcd_batch([6], [4], **kw),
+    "simulate_batch": lambda **kw: simulate_batch(
+        [_trace()], "pfcs", (("L1", 4),), **kw),
+    "simulate_trace": lambda **kw: simulate_trace(
+        _trace(), "arc", (("L1", 4),), **kw),
+    "sweep": lambda **kw: sweep([_trace()], ["lirs"], [(("L1", 4),)], **kw),
+    "run_all_systems": lambda **kw: run_all_systems(
+        _trace(), (("L1", 4),), systems=("lru",), **kw),
+    "fast_lru_hit_rate": lambda **kw: fast_lru_hit_rate([1, 2, 1], 2, **kw),
     "launch.serve": lambda **kw: serve.main(
         ["--null-model", "--requests", "2"]
         + (["--device", kw["device"]] if kw else [])),
@@ -551,3 +561,126 @@ def test_chip_smoke_wide_paths_name_their_kernels(monkeypatch):
         chip_smoke.check_path("wide", dict(launches, factorize_limbs=1),
                               inputs, timed=False,
                               required=["divisibility_mask_limbs"])
+
+
+# --------------------------------------------------------------------------- #
+# chip_smoke.py: the trace engine's phases                                   #
+# --------------------------------------------------------------------------- #
+
+def _count_plain_launches(monkeypatch, names):
+    """On the CPU the wrappers run their plain versions and count no
+    launch; count each as one, as a card run would."""
+    from repro_torch import kernels
+    from repro_torch.kernels import engine, factorize
+
+    plain = {"divisibility_mask": (factorize, "divisibility_mask_ref"),
+             "factorize_squarefree": (factorize, "factorize_squarefree_ref"),
+             "engine_baseline": (engine, "baseline_scan_ref"),
+             "engine_pfcs": (engine, "pfcs_scan_ref")}
+    for name in names:
+        mod, attr = plain[name]
+        orig = getattr(mod, attr)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            kernels.KERNELS[_name].launches += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(mod, attr, counted)
+
+
+def _cpu_smoke(monkeypatch):
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "loop_ms", lambda fn, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "mask_write_ms", lambda m: 0.0)
+    return chip_smoke
+
+
+def test_chip_smoke_engine_check_on_cpu(monkeypatch):
+    """``engine_check`` on the CPU at 120-access traces: every check runs
+    (the plain version on both sides), 2Q holds two keys at capacity 1
+    and every other policy one, the swing trace drives ARC's p to 0 and
+    to c, and the check batch's times feed the ``kernels`` line."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "CHECK_LENGTH", 120)
+    ctx = chip_smoke.Context()
+    out = chip_smoke.phase_engine_check(ctx)
+    assert len(out["checks"]) == 16
+    assert all(c["max_abs_err"] == 0 for c in out["checks"])
+    assert out["held_at_capacity_1"] == {"lru": 1, "fifo": 1, "2q": 2,
+                                         "arc": 1, "lirs": 1}
+    assert out["arc_p_range"] == [0.0, 16.0]
+    assert 0.0 < out["arc_p_end"] < 16.0
+    assert ctx.engine_check["engine_baseline"]["systems"] == list(
+        chip_smoke.BASELINES)
+    assert ctx.engine_check["engine_pfcs"]["shape"] == [4, 120]
+
+
+def test_chip_smoke_engine_check_fails_on_a_wrong_kernel(monkeypatch):
+    """A kernel that differs from its plain version in one counter, or in
+    the last bit of ARC's p, fails ``check_engine``."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    from repro_torch.kernels import engine
+
+    acc = torch.tensor([[0, 1, 0, 2, 3, 1]], dtype=torch.int32)
+    args = (acc, "arc", [1, 2], 4)
+    assert chip_smoke.check_engine("engine_baseline", args)["max_abs_err"] == 0
+    orig = engine.baseline_scan
+
+    def off_by_one(*a):
+        out = orig(*a)
+        out["miss"] = out["miss"] + 1
+        return out
+
+    monkeypatch.setattr(engine, "baseline_scan", off_by_one)
+    with pytest.raises(AssertionError, match="/miss"):
+        chip_smoke.check_engine("engine_baseline", args)
+
+    def p_last_bit(*a):
+        out = orig(*a)
+        p = out["state"]["pol"]["p"]
+        out["state"]["pol"]["p"] = (p.view(torch.int64) ^ 1).view(
+            torch.float64)
+        return out
+
+    monkeypatch.setattr(engine, "baseline_scan", p_last_bit)
+    with pytest.raises(AssertionError, match="/state/pol/p"):
+        chip_smoke.check_engine("engine_baseline", args)
+
+
+def test_chip_smoke_table1_on_cpu(monkeypatch):
+    """``table1`` on the CPU with the workloads cut small: every system's
+    counters equal the scalar oracles', the engine kernels launch once a
+    system and workload, the flat mask and factorization launch (PFCS's
+    kernel discovery) and are held against their plain versions, and a
+    seed-0 count that is off fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, ["divisibility_mask",
+                                        "factorize_squarefree",
+                                        "engine_baseline", "engine_pfcs"])
+    small = {"db_join": ("db_join_trace", dict(
+        n_orders=300, n_customers=60, n_items=120, n_queries=300)),
+             "hft": ("hft_trace", dict(n_instruments=200, n_corr_groups=30,
+                                       n_events=300))}
+    monkeypatch.setattr(chip_smoke, "TABLE1_WORKLOADS", small)
+    monkeypatch.setattr(chip_smoke, "TABLE1_TRIALS", 2)
+    monkeypatch.setattr(chip_smoke, "TABLE1_CAPS",
+                        (("L1", 8), ("L2", 16), ("L3", 64)))
+    monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {})
+    ctx = chip_smoke.Context()
+    out = chip_smoke.phase_table1(ctx)
+    assert out["launches"]["engine_baseline"] == 10
+    assert out["launches"]["engine_pfcs"] == 2
+    assert out["flat_kernels_exact"] == ["divisibility_mask",
+                                         "factorize_squarefree"]
+    assert ctx.engine_path["engine_pfcs"]["launches"] == 2
+    from repro_torch.core import simulate_baseline
+
+    tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
+    lru = simulate_baseline("lru", tr, chip_smoke.TABLE1_CAPS)
+    monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {
+        "hft": {"lru": (lru.hits + 1, lru.demand_accesses)}})
+    with pytest.raises(AssertionError, match="seed-0 hits"):
+        chip_smoke.phase_table1(chip_smoke.Context())
