@@ -179,7 +179,7 @@ FLAT = ["divisibility_mask", "factorize_squarefree", "gcd"]
 LIMB = ["divisibility_mask_limbs", "factorize_limbs", "gcd_limbs"]
 
 #: the trace engine's kernels (no Pallas kernel of the reference: each
-#: replaces a ``lax.scan`` driver) and the reference code they replace
+#: replaces a ``lax.scan`` loop) and the reference code they replace
 ENGINE_KERNELS = [
     ("engine_baseline", "src/repro/core/engine/batch.py:47",
      "src/repro_torch/kernels/csrc/engine_baseline.cu"),

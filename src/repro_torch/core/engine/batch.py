@@ -1,4 +1,4 @@
-"""Engine drivers: a batch of traces through one system in one kernel.
+"""Engine entry points: a batch of traces through one system in one kernel.
 
 ``simulate_batch`` stacks the traces on a leading axis (shorter traces
 padded with key ``-1``, an exact no-op step, so ragged batches lose
@@ -69,7 +69,7 @@ def _pfcs_stats(caps, out: Dict, tables: PFCSTables, i: int) -> AccessStats:
 
 
 # --------------------------------------------------------------------------- #
-# public drivers                                                              #
+# public entry points                                                         #
 # --------------------------------------------------------------------------- #
 
 def key_space(traces: Sequence[Trace]) -> int:

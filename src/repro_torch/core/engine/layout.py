@@ -24,13 +24,13 @@ means "not present".
 
 Stamps are int32 *micro-op* counters: each step consumes a fixed number
 ``M`` of ticks so that multi-insert steps keep the scalar oracle's
-within-level ``OrderedDict`` order; the drivers check ``length * M <
+within-level ``OrderedDict`` order; ``batch.py`` checks ``length * M <
 2**31``.
 
 Reductions resolve ties and the all-masked case to the lowest index, as
 ``jnp.argmin`` / ``jnp.argmax`` do (``torch.argmin`` returns the first
 minimal index as well).  The step functions are pure: they return new
-tensors and never write their inputs, so a driver can gate a whole step
+tensors and never write their inputs, so a caller can gate a whole step
 with :func:`tree_where`.
 """
 

@@ -2,7 +2,7 @@
 // 2Q, ARC or LIRS) over the summed level capacity, plus the recency shadow
 // that attributes each hit to a tier, run over a whole trace.
 //
-// Replaces the lax.scan driver src/repro/core/engine/batch.py:47
+// Replaces the lax.scan loop src/repro/core/engine/batch.py:47
 // (_baseline_core: jax.jit(jax.vmap(run)) around lax.scan) with the step
 // functions it scans, src/repro/core/engine/policies_vec.py (lru_step,
 // fifo_step, twoq_step, arc_build, lirs_build) and

@@ -1,7 +1,7 @@
 // The Table-1 engine's PFCS system: the multi-level relationship-aware cache
 // with its deterministic prefetch, run over a whole trace.
 //
-// Replaces the lax.scan driver src/repro/core/engine/batch.py:82
+// Replaces the lax.scan loop src/repro/core/engine/batch.py:82
 // (_pfcs_core: jax.jit(jax.vmap(run)) around lax.scan) with the step it
 // scans, src/repro/core/engine/pfcs_vec.py (build_pfcs).  The plain
 // PyTorch version is repro_torch/core/engine/pfcs_vec.py's step run as a

@@ -3,7 +3,7 @@
 ``baseline_scan`` (``csrc/engine_baseline.cu``) and ``pfcs_scan``
 (``csrc/engine_pfcs.cu``) run a whole batch of traces through a baseline
 system (one policy plus the tier shadow) or through PFCS, one thread
-block per trace, in one launch.  They replace the ``lax.scan`` drivers of
+block per trace, in one launch.  They replace the ``lax.scan`` loops of
 the reference, ``repro/core/engine/batch.py:47`` (``_baseline_core``) and
 ``batch.py:82`` (``_pfcs_core``), with the step functions those scan
 (``policies_vec.py``, ``hierarchy.py``, ``pfcs_vec.py``).  This module has

@@ -48,12 +48,18 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+engine = {"repro_torch.core." + m for m in (
+    "metrics", "policies", "semantic", "simulator", "engine.layout",
+    "engine.policies_vec", "engine.hierarchy", "engine.pfcs_vec",
+    "engine.batch")} | {"repro_torch.kernels.engine"}
+assert engine <= set(names), sorted(engine - set(names))
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     """Every ``repro_torch`` module and ``chip_smoke`` import in a process
-    where ``import jax`` and ``import repro`` raise."""
+    where ``import jax`` and ``import repro`` raise, the trace engine's
+    modules among them."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
