@@ -85,8 +85,10 @@ also report where their wall time went, ``sharded_time_split``):
                  each): every system through ``simulate_batch`` on the
                  card, PFCS's tables from ``discover="kernel"``; every
                  baseline trace's counters equal to the scalar oracle,
-                 PFCS's on hft's trial 0 (``TABLE1_PFCS_ORACLE``), the
-                 seed-0 hit counts equal to ``TABLE1_SEED0``; per workload and system the hit rate,
+                 every PFCS trace's to the oracle's recorded in
+                 ``TABLE1_PFCS`` (and to the oracle run on hft's trial 0,
+                 ``TABLE1_PFCS_ORACLE``), the seed-0 hit counts equal to
+                 ``TABLE1_SEED0``; per workload and system the hit rate,
                  the engine's wall, its kernel time (CUDA events), its
                  bound, accesses/s, the oracle's host seconds, the table
                  build's host seconds and ``derive_table1_row`` against
@@ -101,7 +103,10 @@ kernels: the same from the ``scale`` run; for the engine kernels:
 launches on the ``table1`` run, ``path_ms`` / ``path_bound_ms`` the sums
 of their CUDA-event times and bounds there, and ``ms`` / ``plain_ms`` /
 ``bound_ms`` on ``engine_check``'s check batch, summed over the five
-baseline systems for ``engine_baseline``) and, last,
+baseline systems for ``engine_baseline``; an engine kernel's bound counts
+the words its algorithm must read for the run's data, from the inputs and
+the checked results, not the kernel's own scans: ``engine_bound``) and,
+last,
 ``{"ok": true, "device": {...}}``.
 
 Every path that launches the kernels holds each kernel against its plain
@@ -215,10 +220,25 @@ TABLE1_SEED0 = {
             "2q": (17458, 20000), "arc": (18272, 20000),
             "lirs": (18272, 20000), "pfcs": (19220, 20000)},
 }
-#: the workloads whose PFCS trial 0 ``table1`` holds against
-#: ``simulate_pfcs`` (0.5 s of host Python on hft, 1.9-2.0 s each on the
-#: other two; every workload's seed-0 hits are held against
-#: ``TABLE1_SEED0``, which that oracle gave)
+#: every PFCS counter of every trial (seeds 0-2) of each workload, from
+#: the scalar oracle ``simulate_pfcs``: hits per level, misses, demand
+#: accesses, prefetches issued, used and true
+#: (``tests/test_torch_engine_ref.py`` holds them against the
+#: reference's oracle)
+TABLE1_PFCS = {
+    "db_join": [((2671, 4299, 11007), 2023, 20000, 4702, 2936, 4702),
+                ((2588, 4394, 10923), 2095, 20000, 5142, 3159, 5142),
+                ((2781, 4501, 10713), 2005, 20000, 4714, 2907, 4714)],
+    "ml_epoch": [((2004, 6758, 15803), 5435, 30000, 1071, 915, 1071),
+                 ((2044, 6931, 15622), 5403, 30000, 1079, 942, 1079),
+                 ((2063, 6722, 15777), 5438, 30000, 1070, 948, 1070)],
+    "hft": [((8932, 5027, 5261), 780, 20000, 1020, 948, 1020),
+            ((8402, 4881, 5889), 828, 20000, 981, 927, 981),
+            ((6856, 6075, 6211), 858, 20000, 1012, 953, 1012)],
+}
+#: the workloads whose PFCS trial 0 ``table1`` also runs through
+#: ``simulate_pfcs`` on the card's host (0.5 s of host Python on hft,
+#: 1.9-2.0 s each on the other two)
 TABLE1_PFCS_ORACLE = ("hft",)
 #: ``engine_check``'s level capacities (those of ``tests/test_engine.py``)
 #: and trace lengths: the check batch, the PFCS variants' batch and the
@@ -1597,16 +1617,155 @@ def tree_diff(a, b, path: str = "") -> list:
 def engine_bytes(name: str, args: tuple, out: dict) -> int:
     """Bytes an engine scan must move: its inputs read once (the accesses
     and, for PFCS, the three tables) and its outputs written once (the
-    counters, the final state, ARC's p and the visit counts)."""
+    counters, the final state and ARC's p; not the kernel's own
+    ``visits``)."""
     n = 4 * args[0].numel()
-    for v in out.values():
-        if isinstance(v, torch.Tensor):
+    for k, v in out.items():
+        if isinstance(v, torch.Tensor) and k != "visits":
             n += v.numel() * v.element_size()
     for _, v in state_leaves(out["state"]):
         n += v.numel() * v.element_size()
     if name == "engine_pfcs":
         n += sum(t.numel() * t.element_size() for t in args[-3:])
     return n
+
+
+def baseline_work(policy: str, keys, caps, n_keys: int) -> int:
+    """The slot words the engine's algorithm must read to run one trace
+    (``keys``, padding dropped) through a baseline system, counted by
+    replaying the port's scalar policy (``core/policies.py``) beside an
+    LRU shadow, apart from the kernel.  Per access: the shadow's keys (the
+    match), then its keys and stamps again for the rank pass when the key
+    is in it, else its stamps to choose the slot to replace; the policy's
+    key arrays (the match, the count and the first free slot come from
+    the same read), and the stamp array of each list the step takes an
+    LRU entry from: LRU/FIFO on a miss; 2Q's Am on a ghost hit, A1in on a
+    cold miss and A1out when that displaces an A1in entry; ARC's B1, T1
+    or B2 when a miss drops their LRU and T1 or T2 for each REPLACE; and
+    LIRS, over its per-key arrays, the bottom LIR search (status and
+    stack stamps) on every access that is not a LIR hit, the queue's
+    stamps when a miss finds the cache full, and a second search and
+    queue pass in the all-LIR corner."""
+    from collections import OrderedDict
+
+    from repro_torch.core.engine.policies_vec import twoq_sizes
+    from repro_torch.core.policies import make_policy
+
+    total = sum(caps)
+    pol = make_policy(policy, total)
+    kin, kout, km = twoq_sizes(total)
+    shadow = OrderedDict()
+    words = 0
+    for key in keys:
+        if key in shadow:
+            shadow.move_to_end(key)
+            words += 3 * total
+        else:
+            shadow[key] = None
+            if len(shadow) > total:
+                shadow.popitem(last=False)
+            words += 2 * total
+        hit = pol.contains(key)
+        if policy in ("lru", "fifo"):
+            words += total if hit else 2 * total
+        elif policy == "2q":
+            words += kin + kout + km
+            if not hit:
+                words += (km if key in pol._a1out else
+                          kin + (kout if len(pol._a1in) >= kin else 0))
+        elif policy == "arc":
+            c = total
+            words += 5 * c + 1
+            replace = c if (pol.t1 or pol.t2) else 0
+            if key in pol.t1 or key in pol.t2:
+                pass
+            elif key in pol.b1 or key in pol.b2:
+                words += replace
+            else:
+                l1 = len(pol.t1) + len(pol.b1)
+                if l1 == c:
+                    words += c + replace if len(pol.t1) < c else c
+                elif l1 + len(pol.t2) + len(pol.b2) >= c:
+                    full = l1 + len(pol.t2) + len(pol.b2) == 2 * c
+                    words += (2 * c + 1 if full else 0) + replace
+        elif pol.status.get(key) != pol._LIR:
+            words += 2 * n_keys
+            if not hit and len(pol.resident) >= pol.capacity:
+                words += n_keys if pol.q else 4 * n_keys
+        pol.access(key)
+    return words
+
+
+def pfcs_level_moves(out: dict, caps, enable_prefetch: bool) -> list:
+    """``[(inserts, evictions), ...]`` per level, each (B,), of a PFCS
+    run, from its counters and final occupancy: the inserts into L1 are
+    the accesses that are no L1 hit, those into level l+1 the evictions
+    from level l (plus the prefetches into the last level), and a level's
+    evictions its inserts less the keys a hit took out of it (levels below
+    L1) less the keys it holds at the end."""
+    hits = out["hits"].cpu().long()
+    inserts = out["demand"].cpu().long() - hits[:, 0]
+    moves = []
+    for l, lv in enumerate(out["state"]["levels"]):
+        if l == len(caps) - 1 and enable_prefetch:
+            inserts = inserts + out["issued"].cpu().long()
+        held = (lv["keys"] != -1).sum(1).cpu().long()
+        evictions = inserts - (hits[:, l] if l else 0) - held
+        moves.append((inserts, evictions))
+        inserts = evictions
+    return moves
+
+
+def pfcs_work(out: dict, caps, budget: int, window: int, always: bool,
+              enable_prefetch: bool) -> int:
+    """The words PFCS's algorithm must read for a batch, from the run's
+    counters and final occupancy (each held against the plain version or
+    the oracle; ``pfcs_level_moves``), apart from the kernel.  Per access
+    the key's level (``where``); on a hit the keys of its level (C+1
+    slots); per insert into a level its keys (the first free slot and the
+    count) and, for a demand insert, the key's degree; per eviction one
+    pass over the level's keys and stamps to select the
+    ``min(window, C+1)`` least recent, and their degrees; per prefetch
+    trigger the target row and each target's ``where``, and per prefetch
+    its truth and degree."""
+    hits = out["hits"].cpu().long()
+    miss, demand, issued, used = (out[k].cpu().long() for k in
+                                  ("miss", "demand", "issued", "used"))
+    moves = pfcs_level_moves(out, caps, enable_prefetch)
+    words = demand + moves[0][0]          # where[key]; the demand degree
+    for l, (c, (inserts, evictions)) in enumerate(zip(caps, moves)):
+        n = c + 1
+        words += hits[:, l] * n + inserts * n
+        words += evictions * (2 * n + min(window, n))
+    if enable_prefetch:
+        triggers = demand if always else miss + used
+        words += triggers * 2 * budget + issued * 2
+    return int(words.sum())
+
+
+def engine_work(name: str, args: tuple, out: dict) -> int:
+    """The words the engine's algorithm must read for this call (see
+    ``baseline_work`` and ``pfcs_work``): the bound's operations, counted
+    from the inputs and the run's checked results, never from the
+    kernel's own scans."""
+    if name == "engine_pfcs":
+        acc, caps, _, budget, window, enable, always = args[:7]
+        return pfcs_work(out, caps, budget, window, always, enable)
+    acc, policy, caps, n_keys = args
+    return sum(baseline_work(policy, [k for k in row if k >= 0], caps,
+                             n_keys) for row in acc.cpu().tolist())
+
+
+def engine_bound(call: dict) -> dict:
+    """``call``'s bytes, algorithmic words and bound (bytes over the
+    memory rate, words over the int32 operation rate); takes the inputs
+    and results that ``EngineCapture`` kept out of ``call``."""
+    args, out = call.pop("args"), call.pop("out")
+    n_bytes = engine_bytes(call["name"], args, out)
+    work = engine_work(call["name"], args, out)
+    b_ms, b_by = bound_ms(n_bytes, work)
+    return {"bytes": n_bytes, "work": work, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def state_leaves(tree, prefix=()):
@@ -1624,9 +1783,10 @@ def state_leaves(tree, prefix=()):
 class EngineCapture:
     """Every engine scan of a run on the card: which kernel and system,
     the batch's shape, the kernel's device time by CUDA events around its
-    launch, the slot words its scans read (``visits``) and the bytes it
-    must move, hence its bound.  The wrapped functions call the
-    originals, whose launch counts are unchanged."""
+    launch and the slot words its scans read (``visits``, a diagnostic);
+    its inputs and results are kept for ``engine_bound``, which a caller
+    runs after the timed run.  The wrapped functions call the originals,
+    whose launch counts are unchanged."""
 
     def __init__(self):
         from repro_torch.kernels import engine
@@ -1646,15 +1806,14 @@ class EngineCapture:
             out = orig(*args, **kw)
             torch.cuda.synchronize()
             ms = sum(a.elapsed_time(b) for a, b in self._events[n_events:])
-            n_bytes = engine_bytes(kname, args, out)
-            # (the plain version, on the CPU, counts no visits)
-            ops = 0 if out["visits"] is None else int(out["visits"].sum())
-            b_ms, b_by = bound_ms(n_bytes, ops)
             self.calls.append({
                 "name": kname,
                 "system": args[1] if kname == "engine_baseline" else "pfcs",
-                "shape": list(args[0].shape), "ms": ms, "bytes": n_bytes,
-                "visits": ops, "bound_ms": b_ms, "bound_by": b_by})
+                "shape": list(args[0].shape), "ms": ms,
+                # (the plain version, on the CPU, counts no visits)
+                "visits": (None if out["visits"] is None
+                           else int(out["visits"].sum())),
+                "args": args, "out": out})
             return out
 
         setattr(mod, fname, wrapped)
@@ -1760,8 +1919,8 @@ def check_engine(kernel_name: str, args: tuple) -> dict:
     """One engine scan against its plain version on the same inputs on
     the card, every counter and the whole final state (exact, or raise);
     the kernel's device time (the least of three runs, CUDA events), the
-    plain version's (host clock, synchronized), the slot words scanned
-    and the bound."""
+    plain version's (host clock, synchronized), the slot words its scans
+    read and the bound (``engine_bound``)."""
     from repro_torch.kernels import engine
 
     fname = {"engine_baseline": "baseline_scan",
@@ -1782,6 +1941,7 @@ def check_engine(kernel_name: str, args: tuple) -> dict:
         raise AssertionError(f"{kernel_name} {args[1:2]}: kernel != plain "
                              f"at {bad[:6]}")
     best = min(cap.calls, key=lambda c: c["ms"])
+    best.update(engine_bound(best))
     return {**best, "max_abs_err": 0, "plain_ms": plain_ms,
             "out": outs[0]}
 
@@ -1873,7 +2033,7 @@ def phase_engine_check(ctx: Context) -> dict:
     ctx.engine_check = {}
     for name, rs in rows.items():
         b_ms, b_by = bound_ms(sum(r["bytes"] for r in rs),
-                              sum(r["visits"] for r in rs))
+                              sum(r["work"] for r in rs))
         ctx.engine_check[name] = {
             "systems": [r["system"] for r in rs],
             "shape": rs[0]["shape"],
@@ -1896,6 +2056,13 @@ def mean_rows(rows: list) -> dict:
     return out
 
 
+def pfcs_counters(st) -> tuple:
+    """A PFCS run's counters in ``TABLE1_PFCS``'s order."""
+    return (tuple(st.hits_per_level.values()), st.misses,
+            st.demand_accesses, st.prefetches_issued, st.prefetches_used,
+            st.prefetches_true)
+
+
 def phase_table1(ctx: Context) -> dict:
     """The paper's Table 1 on the card at ``benchmarks/table1.py``'s
     configuration, unreduced: each workload's three trials (seeds 0-2)
@@ -1904,10 +2071,11 @@ def phase_table1(ctx: Context) -> dict:
     ``discover="kernel"`` (the flat mask and factorization kernels, each
     held against its plain version at every shape it launched at and
     timed by graph replay).  Every baseline trace's counters equal the
-    port's scalar oracle, PFCS's on trial 0 of the workloads of
-    ``TABLE1_PFCS_ORACLE``, and the seed-0 hit counts equal
-    ``TABLE1_SEED0``.  Launches are counted from 0 over the whole
-    run."""
+    port's scalar oracle, every PFCS trace's the oracle's recorded in
+    ``TABLE1_PFCS`` (and the oracle run here on trial 0 of the workloads
+    of ``TABLE1_PFCS_ORACLE``), and the seed-0 hit counts equal
+    ``TABLE1_SEED0``.  Launches are counted from 0 over the whole run;
+    each engine call's bound (``engine_bound``) is counted after it."""
     from repro_torch import kernels
     from repro_torch.core import (derive_table1_row, simulate_baseline,
                                   simulate_pfcs)
@@ -1945,6 +2113,8 @@ def phase_table1(ctx: Context) -> dict:
     finally:
         engine_cap.close()
         capture.close()
+    for call in engine_cap.calls:
+        call.update(engine_bound(call))
 
     for wname, (traces, tables, table_s, per) in results.items():
         accesses = sum(tr.length for tr in traces)
@@ -1953,6 +2123,12 @@ def phase_table1(ctx: Context) -> dict:
             stats, wall, call = per[system]
             t0 = time.perf_counter()
             if system == "pfcs":
+                got = [pfcs_counters(st) for st in stats]
+                if got != [(tuple(h), *r) for h, *r in
+                           TABLE1_PFCS[wname][:len(stats)]]:
+                    raise AssertionError(
+                        f"table1 {wname} pfcs: counters {got} != the "
+                        f"oracle's {TABLE1_PFCS[wname]}")
                 want = ([simulate_pfcs(traces[0], TABLE1_CAPS)]
                         if wname in TABLE1_PFCS_ORACLE else [])
             else:
@@ -1978,7 +2154,8 @@ def phase_table1(ctx: Context) -> dict:
                 "hit_rate_seed0": stats[0].hit_rate,
                 "engine_wall_s": wall, "kernel_ms": call["ms"],
                 "bound_ms": call["bound_ms"], "bound_by": call["bound_by"],
-                "visits": call["visits"], "bytes": call["bytes"],
+                "work": call["work"], "visits": call["visits"],
+                "bytes": call["bytes"],
                 "accesses_per_s_kernel": (accesses / (call["ms"] / 1e3)
                                           if call["ms"] else None),
                 "accesses_per_s_wall": accesses / wall,

@@ -27,7 +27,6 @@ from repro_torch.device import resolve_device
 
 from ..metrics import AccessStats
 from ..traces import Trace
-from .policies_vec import POLICY_TICKS
 from .tables import PFCSTables, pfcs_tables
 
 __all__ = ["simulate_trace", "simulate_batch", "sweep", "VECTORIZED_SYSTEMS",
@@ -147,18 +146,7 @@ def simulate_batch(traces: Sequence[Trace], system: str,
                          f"supported: {VECTORIZED_SYSTEMS}")
     caps = tuple((str(n), int(c)) for n, c in capacities)
     n = len(traces)
-    length = max(tr.length for tr in traces)
     n_keys = key_space(traces)
-    # int32 stamp bound (layout.py): each access consumes a fixed stride
-    # of micro-op ticks; past 2**31 stamps would wrap into the negative
-    # init-stamp range and silently corrupt recency order, so fail instead
-    ticks = (len(caps) + max(1, int(prefetch_budget))
-             if system == "pfcs" else POLICY_TICKS)
-    if length * ticks >= 2**31:
-        raise ValueError(
-            f"trace length {length} x {ticks} stamp ticks/access exceeds "
-            f"the engine's int32 stamp space ({2**31 - 1}); split the "
-            f"trace into <= {(2**31 - 1) // ticks}-access segments")
     acc = stack_accesses(traces, dev)
 
     if system == "pfcs":

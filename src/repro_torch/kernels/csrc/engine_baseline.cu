@@ -16,8 +16,9 @@
 // first_empty, the shadow's rank count) are block-wide folds
 // (engine_scan.cuh) with the reference's lowest-index tie rule, and thread
 // 0 makes the step's few slot writes.  The state is the reference's arrays
-// (int32, in global memory, one region per trace laid out as
-// kernels/engine.py::baseline_layout lists them), initialised here; ARC's
+// (int32, in global memory, one region per trace), initialised here; where
+// each array starts in a region is the wrapper's to say (``offsets``, from
+// kernels/engine.py::baseline_layout), so the layout lives in one place; ARC's
 // adaptive target p is a double in registers (no fast-math: its arithmetic
 // is CPython's), written out at the end with the counters.
 //
@@ -26,17 +27,21 @@
 // across traces (blocks) and within a step's scans (threads).  Each scan
 // costs two block barriers and a shuffle tree whatever its length, so
 // short arrays are bound by that latency, not by bytes or operations.  The
-// bound the smoke run states (bytes over 3.35 TB/s, slot words scanned
-// over 16.7 T int32 operations/s, the scanned words counted here in
-// ``visits``) is therefore loose.
+// bound the smoke run states (bytes over 3.35 TB/s, and over 16.7 T int32
+// operations/s the slot words the algorithm must read for this trace,
+// counted by chip_smoke.py apart from this kernel) is therefore loose.
+// ``visits`` counts the slot words this kernel's scans read, a diagnostic.
 //
 // C entry: pfcs_engine_baseline(acc, n, length, policy, cums, n_levels,
-//   total, s1, s2, s3, n_keys, state, state_words, p_out, counters,
-//   visits, stream) -> cudaGetLastError().  acc is (n, length) int32 keys,
-//   -1 a padded (no-op) step; cums the levels' cumulative capacities;
-//   s1..s3 the policy's sizes (2Q: kin, kout, km; LIRS: capacity, llirs);
-//   counters (n, n_levels + 3) int32: hits per tier (MEM last), misses,
-//   demand accesses; visits (n,) int64; p_out (n,) double.
+//   total, s1, s2, s3, n_keys, state, state_words, offsets, n_offsets,
+//   p_out, counters, visits, stream) -> cudaGetLastError().  acc is
+//   (n, length) int32 keys, -1 a padded (no-op) step; cums the levels'
+//   cumulative capacities; s1..s3 the policy's sizes (2Q: kin, kout, km;
+//   LIRS: capacity, llirs); offsets a host array of the n_offsets words at
+//   which each of the trace's arrays starts in its state_words region
+//   (shk, sht, then the policy's in baseline_layout's order); counters
+//   (n, n_levels + 3) int32: hits per tier (MEM last), misses, demand
+//   accesses; visits (n,) int64; p_out (n,) double.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +55,15 @@ enum Policy { kLRU = 0, kFIFO = 1, kTwoQ = 2, kARC = 3, kLIRS = 4 };
 constexpr int kMaxLevels = 8;
 constexpr int kPolicyTicks = 4;
 constexpr int kLIR = 0, kHIR = 1, kNoStatus = 2;
+// the most arrays a trace's state has (ARC: the shadow's two, eight lists)
+constexpr int kMaxArrays = 10;
+// the arrays each policy's state has (kernels/engine.py::baseline_layout)
+constexpr int kArrays[5] = {4, 4, 8, 10, 8};
+
+// where each array starts in a trace's state region, in words
+struct Offsets {
+  long long at[kMaxArrays];
+};
 
 struct Block {
   long long* red;      // shared scratch of block_reduce
@@ -95,10 +109,10 @@ __device__ bool lru_step(int* keys, int* ts, int c, int key, int now,
 // 2Q: a1k/a1t[kin], aok/aot[kout], amk/amt[km]                              //
 // ------------------------------------------------------------------------ //
 
-__device__ bool twoq_step(int* s, int kin, int kout, int km, int key,
+__device__ bool twoq_step(int* const* s, int kin, int kout, int km, int key,
                           int now, Block& blk) {
-  int *a1k = s, *a1t = a1k + kin, *aok = a1t + kin, *aot = aok + kout;
-  int *amk = aot + kout, *amt = amk + km;
+  int *a1k = s[0], *a1t = s[1], *aok = s[2], *aot = s[3];
+  int *amk = s[4], *amt = s[5];
   long long v[6] = {kNone, kNone, kNone, kNone, kNone, kNone};
   for (int i = threadIdx.x; i < km; i += kThreads) {
     if (amk[i] == key) v[0] = min64(v[0], i);
@@ -208,9 +222,8 @@ __device__ void arc_replace(ArcList& t1, ArcList& t2, ArcList& b1,
   }
 }
 
-__device__ bool arc_step(int* s, int c, int key, int now, double& p,
+__device__ bool arc_step(int* const* s, int c, int key, int now, double& p,
                          Block& blk) {
-  int* base[4] = {s, s + 2 * c, s + 4 * c, s + 6 * c};
   const int len[4] = {c, c, c, 2 * c + 1};
   long long v[16];
 #pragma unroll
@@ -222,13 +235,13 @@ __device__ bool arc_step(int* s, int c, int key, int now, double& p,
   }
 #pragma unroll
   for (int l = 0; l < 4; ++l)
-    arc_scan(base[l], base[l] + len[l], len[l], key, v + 4 * l);
+    arc_scan(s[2 * l], s[2 * l + 1], len[l], key, v + 4 * l);
   block_reduce(v, (1u << 2) | (1u << 6) | (1u << 10) | (1u << 14), blk.red);
   blk.visits += 2LL * (5 * c + 1);
   ArcList lst[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l)
-    lst[l] = {base[l], base[l] + len[l], v[4 * l], index_of(v[4 * l + 1]),
+    lst[l] = {s[2 * l], s[2 * l + 1], v[4 * l], index_of(v[4 * l + 1]),
               static_cast<int>(v[4 * l + 2]), v[4 * l + 3]};
   ArcList &t1 = lst[0], &t2 = lst[1], &b1 = lst[2], &b2 = lst[3];
   const bool in_t1 = t1.match != kNone, in_t2 = t2.match != kNone;
@@ -294,16 +307,18 @@ __device__ long long lirs_bottom(const Lirs& L, Block& blk) {
   return v[0];
 }
 
-__device__ bool lirs_in_stack(const Lirs& L, int key, Block& blk) {
-  const int lir_min = value_of(lirs_bottom(L, blk));
+// whether the key is in the stack, given lirs_bottom's result
+__device__ __forceinline__ bool lirs_in_stack(const Lirs& L, int key,
+                                              long long bottom) {
   const int st = L.s_t[key];
-  return st >= 0 && st >= lir_min;
+  return st >= 0 && st >= value_of(bottom);
 }
 
-// bottom LIR -> HIR: leaves the stack; enters Q if resident
-__device__ void lirs_demote_bottom(Lirs& L, int tick, Block& blk) {
+// bottom LIR -> HIR (``bottom`` from lirs_bottom): leaves the stack;
+// enters Q if resident
+__device__ void lirs_demote_bottom(Lirs& L, int tick, long long bottom) {
   if (L.n_lir <= 0) return;
-  const int b = index_of(lirs_bottom(L, blk));
+  const int b = index_of(bottom);
   if (threadIdx.x == 0) {
     const bool res_b = L.res[b] != 0;
     L.s_t[b] = -1;
@@ -340,20 +355,23 @@ __device__ bool lirs_step(Lirs& L, int key, int now, Block& blk) {
     return hit;
   }
   bool ins, cold = false;
+  long long bottom;
   if (hit) {                          // resident HIR
-    ins = lirs_in_stack(L, key, blk);
+    bottom = lirs_bottom(L, blk);
+    ins = lirs_in_stack(L, key, bottom);
   } else {                            // miss: make room first
     if (L.n_res >= L.capacity) {
       lirs_evict_resident_hir(L, blk);
       if (L.n_res >= L.capacity) {   // all-LIR corner
-        lirs_demote_bottom(L, now, blk);
+        lirs_demote_bottom(L, now, lirs_bottom(L, blk));
         lirs_evict_resident_hir(L, blk);
       }
     }
     if (threadIdx.x == 0) L.res[key] = 1;
     L.n_res += 1;
     __syncthreads();
-    ins = lirs_in_stack(L, key, blk);  // after the demotes moved it
+    bottom = lirs_bottom(L, blk);     // after the demotes moved it
+    ins = lirs_in_stack(L, key, bottom);
     cold = L.n_lir < L.llirs && !ins;
   }
   const bool to_lir = cold || ins;
@@ -364,10 +382,9 @@ __device__ bool lirs_step(Lirs& L, int key, int now, Block& blk) {
     else if (hit) L.q_t[key] = -1;          // promoted: leaves Q
   }
   if (to_lir) L.n_lir += 1;
-  if (ins && L.n_lir > L.llirs) {
-    __syncthreads();
-    lirs_demote_bottom(L, now + 2, blk);
-  }
+  // ``ins`` means a LIR key lies at or below the key's old stamp, and the
+  // key joins the LIR set with the newest stamp: the bottom is unchanged
+  if (ins && L.n_lir > L.llirs) lirs_demote_bottom(L, now + 2, bottom);
   return hit;
 }
 
@@ -380,7 +397,8 @@ __global__ void __launch_bounds__(kThreads)
     engine_baseline_kernel(const int* __restrict__ acc, long long length,
                            const int* __restrict__ cums_in, int n_levels,
                            int total, int s1, int s2, int s3, int n_keys,
-                           int* state, long long state_words, double* p_out,
+                           int* state, long long state_words,
+                           const Offsets offsets, double* p_out,
                            int* counters, long long* visits_out) {
   __shared__ long long red[kMaxFields * kWarps];
   const long long b = blockIdx.x;
@@ -389,34 +407,34 @@ __global__ void __launch_bounds__(kThreads)
   int cums[kMaxLevels];
   for (int l = 0; l < n_levels; ++l) cums[l] = cums_in[l];
 
-  int* shk = st;
-  int* sht = st + total;
-  int* pol = st + 2 * total;
+  int* arr[kMaxArrays];
+  for (int j = 0; j < kMaxArrays; ++j) arr[j] = st + offsets.at[j];
+  int* shk = arr[0];
+  int* sht = arr[1];
+  int* const* pol = arr + 2;          // the policy's arrays
   fill(shk, total, kEmpty);
   fill_stamps(sht, total);
   Lirs L{};
   if (P == kLRU || P == kFIFO) {
-    fill(pol, total, kEmpty);
-    fill_stamps(pol + total, total);
+    fill(pol[0], total, kEmpty);
+    fill_stamps(pol[1], total);
   } else if (P == kTwoQ) {
-    int* s = pol;
     const int sz[3] = {s1, s2, s3};
     for (int l = 0; l < 3; ++l) {
-      fill(s, sz[l], kEmpty);
-      fill_stamps(s + sz[l], sz[l]);
-      s += 2 * sz[l];
+      fill(pol[2 * l], sz[l], kEmpty);
+      fill_stamps(pol[2 * l + 1], sz[l]);
     }
   } else if (P == kARC) {
     for (int l = 0; l < 4; ++l) {     // keys EMPTY, stamps 0
       const int n = l < 3 ? total : 2 * total + 1;
-      fill(pol + 2 * total * l, n, kEmpty);
-      fill(pol + 2 * total * l + n, n, 0);
+      fill(pol[2 * l], n, kEmpty);
+      fill(pol[2 * l + 1], n, 0);
     }
   } else {
-    L = {pol, pol + n_keys, pol + 2 * n_keys, pol + 3 * n_keys,
-         n_keys, s1, s2, 0, 0};
+    L = {pol[0], pol[1], pol[2], pol[3], n_keys, s1, s2, 0, 0};
     fill(L.status, n_keys, kNoStatus);
-    fill(L.s_t, 2 * n_keys, -1);
+    fill(L.s_t, n_keys, -1);
+    fill(L.q_t, n_keys, -1);
     fill(L.res, n_keys, 0);
   }
   __syncthreads();
@@ -456,7 +474,7 @@ __global__ void __launch_bounds__(kThreads)
     // hit := the policy's residency before its update; then the update
     bool hit;
     if (P == kLRU || P == kFIFO)
-      hit = lru_step(pol, pol + total, total, key, now, P == kLRU, blk);
+      hit = lru_step(pol[0], pol[1], total, key, now, P == kLRU, blk);
     else if (P == kTwoQ)
       hit = twoq_step(pol, s1, s2, s3, key, now, blk);
     else if (P == kARC)
@@ -487,8 +505,8 @@ __global__ void __launch_bounds__(kThreads)
     visits_out[b] = blk.visits;
     p_out[b] = p;
     if (P == kLIRS) {
-      L.res[n_keys] = L.n_lir;        // the two words after res
-      L.res[n_keys + 1] = L.n_res;
+      pol[4][0] = L.n_lir;
+      pol[5][0] = L.n_res;
     }
   }
 }
@@ -496,12 +514,13 @@ __global__ void __launch_bounds__(kThreads)
 template <int P>
 void launch(const int* acc, long long n, long long length, const int* cums,
             int n_levels, int total, int s1, int s2, int s3, int n_keys,
-            int* state, long long state_words, double* p_out, int* counters,
-            long long* visits, cudaStream_t stream) {
+            int* state, long long state_words, const Offsets& offsets,
+            double* p_out, int* counters, long long* visits,
+            cudaStream_t stream) {
   engine_baseline_kernel<P><<<static_cast<unsigned>(n), kThreads, 0,
                               stream>>>(
       acc, length, cums, n_levels, total, s1, s2, s3, n_keys, state,
-      state_words, p_out, counters, visits);
+      state_words, offsets, p_out, counters, visits);
 }
 
 }  // namespace
@@ -511,11 +530,15 @@ extern "C" int pfcs_engine_baseline(const void* acc, long long n,
                                     const void* cums, int n_levels, int total,
                                     int s1, int s2, int s3, int n_keys,
                                     void* state, long long state_words,
+                                    const long long* offsets, int n_offsets,
                                     void* p_out, void* counters, void* visits,
                                     void* stream) {
   if (n <= 0) return 0;
-  if (n_levels < 1 || n_levels > kMaxLevels)
+  if (n_levels < 1 || n_levels > kMaxLevels || policy < 0 || policy > 4 ||
+      n_offsets != kArrays[policy])
     return static_cast<int>(cudaErrorInvalidValue);
+  Offsets off{};
+  for (int j = 0; j < n_offsets; ++j) off.at[j] = offsets[j];
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const int*>(acc);
   auto c = static_cast<const int*>(cums);
@@ -526,23 +549,23 @@ extern "C" int pfcs_engine_baseline(const void* acc, long long n,
   switch (policy) {
     case kLRU:
       launch<kLRU>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                   state_words, p, out, vis, s);
+                   state_words, off, p, out, vis, s);
       break;
     case kFIFO:
       launch<kFIFO>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, p, out, vis, s);
+                    state_words, off, p, out, vis, s);
       break;
     case kTwoQ:
       launch<kTwoQ>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, p, out, vis, s);
+                    state_words, off, p, out, vis, s);
       break;
     case kARC:
       launch<kARC>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                   state_words, p, out, vis, s);
+                   state_words, off, p, out, vis, s);
       break;
     case kLIRS:
       launch<kLIRS>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, p, out, vis, s);
+                    state_words, off, p, out, vis, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

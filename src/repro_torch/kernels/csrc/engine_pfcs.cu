@@ -11,8 +11,9 @@
 // launch per simulate_batch call.  The block walks its trace step by step.
 // Each level of capacity C is four (C+1)-slot int32 arrays (keys, stamps,
 // the prefetched flag, the degree snapshot), then comes the (K,) residency
-// array ``where`` (the key's level or -1); one region per trace, laid out
-// as kernels/engine.py::pfcs_layout lists them and initialised here.  The
+// array ``where`` (the key's level or -1); one region per trace,
+// initialised here, each array at the word the wrapper gives in
+// ``offsets`` (from kernels/engine.py::pfcs_layout).  The
 // (K, budget) target and truth tables and the (K,) degree table are read
 // from global memory.  A step: the hit's slot (a block fold over its
 // level), the demand insert and demote cascade (per level, a fold for the
@@ -28,11 +29,17 @@
 // What bounds it.  As engine_baseline.cu: a serial chain of steps, each
 // scan two block barriers and a shuffle tree, parallel only across traces
 // and within a scan; the bytes / slot-words bound the smoke run states
-// (scanned words counted here in ``visits``) is loose.
+// (the words the algorithm must read for this trace, counted by
+// chip_smoke.py apart from this kernel) is loose.  ``visits`` counts the
+// slot words this kernel's scans read, a diagnostic: the eviction window's
+// w chained folds read the level w times where one selection would do.
 //
 // C entry: pfcs_engine_pfcs(acc, n, length, caps, n_levels, n_keys,
 //   budget, bcols, window, always, targets, truth, degree, state,
-//   state_words, counters, visits, stream) -> cudaGetLastError().  acc is
+//   state_words, offsets, n_offsets, counters, visits, stream) ->
+//   cudaGetLastError().  offsets is a host array of the 4 * n_levels + 1
+//   words at which each level's keys, t, pf, deg and then ``where`` start
+//   in a trace's state_words region.  acc is
 //   (n, length) int32 keys, -1 a padded step; targets (n, K, bcols) int32,
 //   -1 padded; truth (n, K, bcols) uint8; degree (n, K) int32; budget the
 //   prefetch inserts per access (0 disables prefetch); counters
@@ -48,6 +55,12 @@ using namespace pfcs_engine;
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kMaxArrays = 4 * kMaxLevels + 1;
+
+// where each array starts in a trace's state region, in words
+struct Offsets {
+  long long at[kMaxArrays];
+};
 
 struct Level {
   int *keys, *t, *pf, *deg;
@@ -127,8 +140,8 @@ __global__ void __launch_bounds__(kThreads)
                        int always, const int* __restrict__ targets,
                        const unsigned char* __restrict__ truth,
                        const int* __restrict__ degree, int* state,
-                       long long state_words, int* counters,
-                       long long* visits_out) {
+                       long long state_words, const Offsets offsets,
+                       int* counters, long long* visits_out) {
   __shared__ long long red[kMaxFields * kWarps];
   const long long b = blockIdx.x;
   const int* a = acc + b * length;
@@ -138,19 +151,19 @@ __global__ void __launch_bounds__(kThreads)
   const int* deg_tbl = degree + b * n_keys;
 
   Level lv[kMaxLevels];
-  int* s = st;
+  const long long* at = offsets.at;
   for (int l = 0; l < n_levels; ++l) {
     const int cap = caps_in[l], n = cap + 1;
-    lv[l] = {s, s + n, s + 2 * n, s + 3 * n, cap};
+    lv[l] = {st + at[4 * l], st + at[4 * l + 1], st + at[4 * l + 2],
+             st + at[4 * l + 3], cap};
     for (int i = threadIdx.x; i < n; i += kThreads) {
       lv[l].keys[i] = kEmpty;
       lv[l].t[i] = i - n;
       lv[l].pf[i] = 0;
       lv[l].deg[i] = 0;
     }
-    s += 4 * n;
   }
-  int* where = s;
+  int* where = st + at[4 * n_levels];
   for (int i = threadIdx.x; i < n_keys; i += kThreads) where[i] = -1;
   __syncthreads();
 
@@ -251,11 +264,15 @@ extern "C" int pfcs_engine_pfcs(const void* acc, long long n, long long length,
                                 int budget, int bcols, int window, int always,
                                 const void* targets, const void* truth,
                                 const void* degree, void* state,
-                                long long state_words, void* counters,
-                                void* visits, void* stream) {
+                                long long state_words,
+                                const long long* offsets, int n_offsets,
+                                void* counters, void* visits, void* stream) {
   if (n <= 0) return 0;
-  if (n_levels < 1 || n_levels > kMaxLevels || budget > bcols)
+  if (n_levels < 1 || n_levels > kMaxLevels || budget > bcols ||
+      n_offsets != 4 * n_levels + 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  Offsets off{};
+  for (int j = 0; j < n_offsets; ++j) off.at[j] = offsets[j];
   engine_pfcs_kernel<<<static_cast<unsigned>(n), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(acc), length, static_cast<const int*>(caps),
@@ -263,7 +280,7 @@ extern "C" int pfcs_engine_pfcs(const void* acc, long long n, long long length,
       static_cast<const int*>(targets),
       static_cast<const unsigned char*>(truth),
       static_cast<const int*>(degree), static_cast<int*>(state), state_words,
-      static_cast<int*>(counters), static_cast<long long*>(visits));
+      off, static_cast<int*>(counters), static_cast<long long*>(visits));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,9 +15,14 @@ the trace with the batch as a leading dimension.  A wrapper runs the
 kernel for CUDA tensors and the plain version for CPU tensors; it never
 falls back from one to the other.  Both return the counters and the final
 state in the step functions' layout (the kernel's state is a view of its
-scratch), so the two can be compared array by array; the kernel also
-returns ``visits``, the slot words its scans read (the plain version
-``None``).
+scratch, laid out by ``baseline_layout`` / ``pfcs_layout``, whose offsets
+the wrapper hands to the kernel), so the two can be compared array by
+array; the kernel also returns ``visits``, the slot words its scans read,
+a diagnostic (the plain version ``None``).
+
+Stamps are int32 micro-op ticks: each access advances ``POLICY_TICKS``
+(baselines) or ``levels + budget`` (PFCS) of them, so both scans refuse a
+trace of ``2**31 / ticks`` accesses or more, for every caller.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from .cuda import CudaKernel
 
 __all__ = ["baseline_scan", "pfcs_scan", "baseline_scan_ref",
            "pfcs_scan_ref", "baseline_layout", "pfcs_layout",
-           "ENGINE_BASELINE", "ENGINE_PFCS", "POLICY_IDS", "MAX_LEVELS"]
+           "ENGINE_BASELINE", "ENGINE_PFCS", "POLICY_IDS", "MAX_LEVELS",
+           "STAMP_SPACE"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -45,16 +51,18 @@ _INT = ctypes.c_int
 ENGINE_BASELINE = CudaKernel(
     "engine_baseline", "engine_baseline.cu", "pfcs_engine_baseline",
     [_P, _I64, _I64, _INT, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _I64,
-     _P, _P, _P, _P])
+     _P, _INT, _P, _P, _P, _P])
 ENGINE_PFCS = CudaKernel(
     "engine_pfcs", "engine_pfcs.cu", "pfcs_engine_pfcs",
     [_P, _I64, _I64, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P, _P, _P,
-     _I64, _P, _P, _P])
+     _I64, _P, _INT, _P, _P, _P])
 
 #: the policy codes of ``engine_baseline.cu``
 POLICY_IDS = {"lru": 0, "fifo": 1, "2q": 2, "arc": 3, "lirs": 4}
 #: the most cache levels the kernels take
 MAX_LEVELS = 8
+#: int32 stamps: an access's ticks times the trace length stay below this
+STAMP_SPACE = 2**31
 
 
 def baseline_layout(policy: str, total: int,
@@ -91,17 +99,34 @@ def pfcs_layout(caps: Sequence[int],
     return out + [(("where",), n_keys)]
 
 
+def _offsets(layout) -> ctypes.Array:
+    """The word at which each array of ``layout`` starts, as the host
+    array the kernels take."""
+    starts = [0, *accumulate(n for _, n in layout)][:-1]
+    return (ctypes.c_longlong * len(starts))(*starts)
+
+
 def _unflatten(layout, scratch: torch.Tensor) -> Dict:
-    """Views of ``scratch`` (B, words) named by ``layout``."""
+    """Views of ``scratch`` (B, words) named by ``layout``, each at the
+    offset ``_offsets`` hands the kernel."""
     out: Dict = {}
-    at = 0
-    for path, n in layout:
+    for (path, n), at in zip(layout, _offsets(layout)):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = scratch[:, at:at + n]
-        at += n
     return out
+
+
+def _check_stamp_space(length: int, ticks: int) -> None:
+    """Refuse ``length`` accesses of ``ticks`` stamp ticks each when the
+    stamps would leave int32: past 2**31 they wrap into the negative init
+    stamps and silently corrupt recency order."""
+    if length * ticks >= STAMP_SPACE:
+        raise ValueError(
+            f"trace length {length} x {ticks} stamp ticks/access exceeds "
+            f"the engine's int32 stamp space ({STAMP_SPACE - 1}); split the "
+            f"trace into <= {(STAMP_SPACE - 1) // ticks}-access segments")
 
 
 def _check_accesses(accesses: torch.Tensor, n_keys: int) -> None:
@@ -166,6 +191,8 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
         raise ValueError(f"unknown policy {policy!r}")
     caps = [int(c) for c in caps]
     _check_levels(caps)
+    if accesses.dim() == 2:
+        _check_stamp_space(accesses.shape[1], POLICY_TICKS)
     _check_accesses(accesses, n_keys)
     if accesses.device.type == "cpu":
         return baseline_scan_ref(accesses, policy, caps, n_keys)
@@ -173,6 +200,7 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
     batch, length = accesses.shape
     total = sum(caps)
     layout = baseline_layout(policy, total, n_keys)
+    offsets = _offsets(layout)
     words = sum(n for _, n in layout)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     cums = torch.tensor(list(accumulate(caps)), dtype=torch.int32,
@@ -192,8 +220,9 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
         ENGINE_BASELINE.launch(dev, accesses.data_ptr(), batch, length,
                                POLICY_IDS[policy], cums.data_ptr(), n_levels,
                                total, *sizes, n_keys, scratch.data_ptr(),
-                               words, p_out.data_ptr(), counters.data_ptr(),
-                               visits.data_ptr())
+                               words, ctypes.addressof(offsets),
+                               len(offsets), p_out.data_ptr(),
+                               counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
     if policy == "arc":
         state["pol"]["p"] = p_out
@@ -240,6 +269,8 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     "state": {...}, "visits": (B,) int64 or None}``."""
     caps = [int(c) for c in caps]
     _check_levels(caps)
+    if accesses.dim() == 2:
+        _check_stamp_space(accesses.shape[1], len(caps) + budget)
     _check_accesses(accesses, n_keys)
     batch = accesses.shape[0]
     if (targets.dtype != torch.int32 or degree.dtype != torch.int32
@@ -262,6 +293,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     dev = accesses.device
     length = accesses.shape[1]
     layout = pfcs_layout(caps, n_keys)
+    offsets = _offsets(layout)
     words = sum(n for _, n in layout)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     n_levels = len(caps)
@@ -278,6 +310,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
                            int(window), int(bool(always)),
                            targets.data_ptr(), truth8.data_ptr(),
                            degree.data_ptr(), scratch.data_ptr(), words,
+                           ctypes.addressof(offsets), len(offsets),
                            counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
     levels = tuple(dict(state["levels"][i], pf=state["levels"][i]["pf"]

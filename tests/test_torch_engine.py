@@ -151,18 +151,23 @@ def test_twoq_and_every_policy_at_capacity_one(policy):
     assert len(mine) == len(ref) == (2 if policy == "2q" else 1)
 
 
-def test_engine_checks_its_inputs():
+def test_engine_checks_its_inputs(monkeypatch):
     tr = port(R.zipf_trace(n_keys=100, n_accesses=200, seed=0))
     with pytest.raises(ValueError, match="cannot simulate"):
         simulate_trace(tr, "semantic", CAPS, device="cpu")
-
-    class Long:                      # only the stamp guard looks at it
-        length, n_keys, accesses = 2**29, 1, np.zeros(1, dtype=np.int64)
-
+    # the scans' stamp guard, its limit cut to this trace: 4 ticks an
+    # access for a baseline, 3 levels + budget 4 for PFCS
+    monkeypatch.setattr(kengine, "STAMP_SPACE", 4 * tr.length)
     with pytest.raises(ValueError, match="int32 stamp space"):
-        simulate_trace(Long(), "lru", CAPS, device="cpu")
+        simulate_trace(tr, "lru", CAPS, device="cpu")
     with pytest.raises(ValueError, match="int32 stamp space"):
-        simulate_trace(Long(), "pfcs", CAPS, device="cpu")
+        simulate_trace(tr, "pfcs", CAPS, device="cpu")
+    with pytest.raises(ValueError, match="int32 stamp space"):
+        fast_lru_hit_rate(tr.accesses, 8, device="cpu")
+    monkeypatch.setattr(kengine, "STAMP_SPACE", 7 * tr.length + 1)
+    assert simulate_trace(tr, "pfcs", CAPS, device="cpu").demand_accesses \
+        == tr.length
+    monkeypatch.undo()
     small = pfcs_tables(tr, CAPS, n_keys=50, device="cpu")
     with pytest.raises(ValueError, match="rebuild with n_keys"):
         simulate_trace(tr, "pfcs", CAPS, tables=small, device="cpu")
@@ -250,6 +255,29 @@ def test_pfcs_layout_is_the_step_state():
     want = [(path, t.shape[1]) for path, t in chip_smoke().state_leaves(
         {"levels": state["levels"], "where": state["where"]})]
     assert kengine.pfcs_layout([3, 5], 40) == want
+
+
+@pytest.mark.parametrize("scan", ["baseline", "pfcs"])
+def test_scans_refuse_traces_past_the_int32_stamps(scan):
+    """At the real limit, on a (1, T) view of one key that holds no
+    trace: 2**29 accesses of 4 ticks (a baseline) or 2**31 / 7 of 3
+    levels + budget 4 (PFCS) are refused for every caller; one access
+    fewer passes the guard and stops at the next check."""
+    def run(length):
+        acc = torch.zeros((1, 1), dtype=torch.int32).expand(1, length)
+        if scan == "baseline":
+            return kengine.baseline_scan(acc, "lru", [8, 24, 64], 1)
+        tables = (torch.zeros((1, 1, 4), dtype=torch.int32),
+                  torch.zeros((1, 1, 4), dtype=torch.bool),
+                  torch.zeros((1, 1), dtype=torch.int32))
+        return kengine.pfcs_scan(acc, [8, 24, 64], 1, 4, 8, True, False,
+                                 *tables)
+
+    limit = 2**29 if scan == "baseline" else -(-2**31 // 7)
+    with pytest.raises(ValueError, match="int32 stamp space"):
+        run(limit)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(limit - 1)
 
 
 def test_scan_wrappers_check_their_inputs():

@@ -157,3 +157,24 @@ def test_pfcs_final_state_equals_reference():
     assert_state_equal(want["where"], got["state"]["where"], "where")
     assert_state_equal(want["stats"], {k: got[k] for k in want["stats"]},
                        "stats")
+
+
+@pytest.mark.parametrize("workload", ["db_join", "ml_epoch", "hft"])
+def test_table1_pfcs_counters_are_the_reference_oracles(workload):
+    """``chip_smoke.py``'s ``TABLE1_PFCS``, which the ``table1`` phase
+    holds every PFCS trace of the card's run to, is the reference's
+    scalar oracle ``simulate_pfcs`` on the reference's traces of each
+    trial, at ``benchmarks/table1.py``'s configuration; the port's
+    generators give the same traces."""
+    cs = chip_smoke()
+    gen, kw = cs.TABLE1_WORKLOADS[workload]
+    want = []
+    for seed in range(cs.TABLE1_TRIALS):
+        tr = getattr(R, gen)(seed=seed, **kw)
+        assert np.array_equal(np.asarray(tr.accesses),
+                              cs._make_trace(gen, seed=seed, **kw).accesses)
+        st = R.simulate_pfcs(tr, cs.TABLE1_CAPS)
+        want.append((tuple(st.hits_per_level.values()), st.misses,
+                     st.demand_accesses, st.prefetches_issued,
+                     st.prefetches_used, st.prefetches_true))
+    assert cs.TABLE1_PFCS[workload] == want

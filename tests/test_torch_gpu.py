@@ -524,3 +524,26 @@ def test_cuda_engine_launches_once_per_batch(cuda_device):
     after = launch_counts()
     assert after["engine_baseline"] - before["engine_baseline"] == 1
     assert after["engine_pfcs"] - before["engine_pfcs"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_engine_refuses_a_layout_it_does_not_know(cuda_device):
+    """The engine kernels take each state array's offset from the
+    wrapper's layout and refuse, before any launch, a table whose length
+    is not their policy's (baseline) or 4 per level and 1 (PFCS)."""
+    import ctypes
+
+    from repro_torch.kernels import engine
+
+    arc = engine._offsets(engine.baseline_layout("arc", 8, 4))
+    two = engine._offsets(engine.pfcs_layout([4, 8], 4))
+    before = launch_counts()
+    with pytest.raises(RuntimeError, match="engine_baseline"):
+        engine.ENGINE_BASELINE.launch(
+            cuda_device, 0, 1, 1, engine.POLICY_IDS["lru"], 0, 1, 8, 0, 0,
+            0, 4, 0, 32, ctypes.addressof(arc), len(arc), 0, 0, 0)
+    with pytest.raises(RuntimeError, match="engine_pfcs"):
+        engine.ENGINE_PFCS.launch(
+            cuda_device, 0, 1, 1, 0, 1, 4, 4, 4, 8, 0, 0, 0, 0, 0, 32,
+            ctypes.addressof(two), len(two), 0, 0)
+    assert launch_counts() == before

@@ -658,10 +658,12 @@ def test_chip_smoke_engine_check_fails_on_a_wrong_kernel(monkeypatch):
 
 def test_chip_smoke_table1_on_cpu(monkeypatch):
     """``table1`` on the CPU with the workloads cut small: every system's
-    counters equal the scalar oracles', the engine kernels launch once a
+    counters equal the scalar oracles' (PFCS's, every trial, as
+    ``TABLE1_PFCS`` records them), the engine kernels launch once a
     system and workload, the flat mask and factorization launch (PFCS's
-    kernel discovery) and are held against their plain versions, and a
-    seed-0 count that is off fails the phase."""
+    kernel discovery) and are held against their plain versions, every
+    engine call has its bound, and a seed-0 count or a recorded PFCS
+    counter that is off fails the phase."""
     chip_smoke = _cpu_smoke(monkeypatch)
     _count_plain_launches(monkeypatch, ["divisibility_mask",
                                         "factorize_squarefree",
@@ -675,6 +677,12 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "TABLE1_CAPS",
                         (("L1", 8), ("L2", 16), ("L3", 64)))
     monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {})
+    from repro_torch.core import simulate_baseline, simulate_pfcs
+
+    pfcs = {w: [chip_smoke.pfcs_counters(simulate_pfcs(
+        chip_smoke._make_trace(gen, seed=s, **kw), chip_smoke.TABLE1_CAPS))
+        for s in range(2)] for w, (gen, kw) in small.items()}
+    monkeypatch.setattr(chip_smoke, "TABLE1_PFCS", pfcs)
     ctx = chip_smoke.Context()
     out = chip_smoke.phase_table1(ctx)
     assert out["launches"]["engine_baseline"] == 10
@@ -682,7 +690,8 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
     assert out["flat_kernels_exact"] == ["divisibility_mask",
                                          "factorize_squarefree"]
     assert ctx.engine_path["engine_pfcs"]["launches"] == 2
-    from repro_torch.core import simulate_baseline
+    assert all(ctx.engine_path[n]["path_bound_ms"] > 0
+               for n in chip_smoke.ENGINE)
 
     tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
     lru = simulate_baseline("lru", tr, chip_smoke.TABLE1_CAPS)
@@ -690,3 +699,67 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
         "hft": {"lru": (lru.hits + 1, lru.demand_accesses)}})
     with pytest.raises(AssertionError, match="seed-0 hits"):
         chip_smoke.phase_table1(chip_smoke.Context())
+    monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {})
+    hits, *rest = pfcs["hft"][1]
+    pfcs["hft"][1] = (hits, *rest[:-1], rest[-1] + 1)
+    with pytest.raises(AssertionError, match="hft pfcs: counters"):
+        chip_smoke.phase_table1(chip_smoke.Context())
+
+
+def test_chip_smoke_engine_work_counts_the_algorithm(monkeypatch):
+    """The engine kernels' bounds count the algorithm's reads, not the
+    kernel's: a PFCS run's inserts and evictions per level, derived from
+    its counters and final occupancy, equal those the plain step makes
+    (counted in its ``_add`` / ``_evict``) on a ragged batch with
+    prefetch; a baseline's words follow the replay by hand on a small
+    LRU trace; and neither depends on the ``visits`` a kernel reports."""
+    chip_smoke = _chip_smoke()
+    from repro_torch.core.engine import pfcs_vec
+    from repro_torch.kernels import engine
+
+    from repro_torch.core.engine.batch import (key_space, stack_accesses,
+                                               stack_tables)
+
+    caps = [3, 5, 9]
+    traces = chip_smoke.check_traces(150)
+    acc, n_keys = stack_accesses(traces, "cpu"), key_space(traces)
+    levels = tuple((str(i), c) for i, c in enumerate(caps))
+    tables = stack_tables([pfcs_tables(tr, levels, n_keys=n_keys,
+                                       device="cpu") for tr in traces],
+                          "cpu")
+    counted = {"add": torch.zeros((len(caps), len(traces)), dtype=torch.long),
+               "evict": torch.zeros((len(caps), len(traces)),
+                                    dtype=torch.long)}
+    add, evict = pfcs_vec._add, pfcs_vec._evict
+
+    def level_of(lv):
+        return caps.index(lv["keys"].shape[1] - 1)
+
+    def counting_add(lv, k, tick, pf, dg, do):
+        counted["add"][level_of(lv)] += do.long()
+        return add(lv, k, tick, pf, dg, do)
+
+    def counting_evict(lv, cap, window, do):
+        counted["evict"][caps.index(cap)] += do.long()
+        return evict(lv, cap, window, do)
+
+    monkeypatch.setattr(pfcs_vec, "_add", counting_add)
+    monkeypatch.setattr(pfcs_vec, "_evict", counting_evict)
+    out = engine.pfcs_scan(acc, caps, n_keys, 4, 8, True, False, *tables)
+    moves = chip_smoke.pfcs_level_moves(out, caps, True)
+    for l, (inserts, evictions) in enumerate(moves):
+        assert inserts.tolist() == counted["add"][l].tolist()
+        assert evictions.tolist() == counted["evict"][l].tolist()
+    assert counted["evict"].sum() > 0
+
+    # LRU over one level of 2 on 0, 1, 0, 2: the shadow reads 2+2 words
+    # for a new key and 2+4 for a key it holds; the policy 2 on a hit
+    # and 4 on a miss
+    assert chip_smoke.baseline_work("lru", [0, 1, 0, 2], [2], 3) == (
+        4 + 4 + 6 + 4) + (4 + 4 + 2 + 4)
+    call = {"name": "engine_baseline", "args": (acc, "lirs", caps, n_keys),
+            "out": engine.baseline_scan(acc, "lirs", caps, n_keys)}
+    again = dict(call, out=dict(call["out"], visits=torch.full(
+        (len(traces),), 10**9, dtype=torch.int64)))
+    first = chip_smoke.engine_bound(call)
+    assert first == chip_smoke.engine_bound(again) and first["work"] > 0
