@@ -48,8 +48,8 @@ also report where their wall time went, ``sharded_time_split``):
                  requests) through ``SlotMachine`` / ``SlotOracle``
                  against ``BENCH_case_batching.json``, and through
                  ``kv="sharded"`` with the same counters;
-  batching_full  ``case_batching``'s full configuration (4000 requests),
-                 ``kv="sharded"`` against ``kv="vec"``;
+  batching_full  ``case_batching``'s full configuration, its 4000 requests
+                 cut to 2000, ``kv="sharded"`` against ``kv="vec"``;
   launcher       ``repro_torch.launch.serve --null-model --kv sharded``,
                  each kernel held against its plain version on the
                  inputs that run gave it;
@@ -75,11 +75,16 @@ also report where their wall time went, ``sharded_time_split``):
                  against their plain versions (the step functions run as
                  a Python loop) on the card, every counter and the whole
                  final state: a ragged batch of four traces of the port's
-                 generators (about 512 accesses) through every system;
+                 generators (about 256 accesses) through every system;
                  PFCS without prefetch, with prefetch on every access and
-                 with a victim window wider than every level (about 256
+                 with a victim window wider than every level (about 128
                  accesses); levels of capacity 1 (2Q holds two keys, as in the reference); a
                  trace that drives ARC's p to 0 and to c (p bit for bit);
+                 then the state's other placements: every system on the
+                 check traces with their keys spread over 60,000 (the
+                 per-key arrays in global memory) and at levels of
+                 8 / 24 / 20,000 (every array in global memory), each
+                 check line naming where the kernel kept its state;
   table1         the paper's Table 1 at ``benchmarks/table1.py``'s
                  configuration, unreduced (three workloads, three trials
                  each): every system through ``simulate_batch`` on the
@@ -92,9 +97,13 @@ also report where their wall time went, ``sharded_time_split``):
                  the engine's wall, its kernel time (CUDA events), its
                  bound, accesses/s, the oracle's host seconds, the table
                  build's host seconds and ``derive_table1_row`` against
-                 LRU; the flat mask and factorization held against their
-                 plain versions at every shape the tables launched them
-                 at.
+                 LRU, the kernel's ns per serial step (its ms over the
+                 longest trace's steps) and where it kept its state (the
+                 dynamic shared bytes); the flat mask and factorization
+                 held against their plain versions at every shape the
+                 tables launched them at; the engine kernels' ``ptxas``
+                 lines (registers and static shared memory of each
+                 template instance).
 
 Then the table of the reference's six Pallas kernels, the card's name and
 power limit, the ``kernels`` line (for the flat kernels: launches on the
@@ -244,9 +253,23 @@ TABLE1_PFCS_ORACLE = ("hft",)
 #: and trace lengths: the check batch, the PFCS variants' batch and the
 #: capacity-1 batch
 CHECK_CAPS = (("L1", 8), ("L2", 24), ("L3", 64))
-CHECK_LENGTH = 512
-VARIANT_LENGTH = 256
-CAPACITY1_LENGTH = 100
+CHECK_LENGTH = 256
+VARIANT_LENGTH = 128
+CAPACITY1_LENGTH = 60
+#: ``engine_check``'s placement batches: the check traces at this length,
+#: their keys spread by ``KEY_SPREAD`` (400 keys become a 60,000-key space,
+#: whose per-key arrays do not fit in shared memory beside the slots), and
+#: the same traces at ``GLOBAL_CAPS``, whose slots do not fit either
+#: (every array in global memory)
+PLACEMENT_LENGTH = 48
+KEY_SPREAD = 150
+GLOBAL_CAPS = (("L1", 8), ("L2", 24), ("L3", 20_000))
+
+#: ``batching_full``'s requests: ``case_batching``'s full configuration
+#: has 4000; its depth is cut to this many so that the script, which has
+#: grown by a path a slice, stays inside its time limit (its sharded run's
+#: host Python takes about 7 ms a request)
+BATCHING_FULL_REQUESTS = 2000
 
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
@@ -1102,13 +1125,15 @@ def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2,
 def batching_trace(smoke: bool):
     """``benchmarks/cases.py::case_batching``'s arrival trace and engine
     sizes: a 60% burst front plus a Poisson tail, 32-token shared
-    prefixes, ragged tails and decode demands."""
+    prefixes, ragged tails and decode demands; the full configuration cut
+    to ``BATCHING_FULL_REQUESTS`` requests."""
     from repro_torch.serving.slots import poisson_arrival_ticks
 
     if smoke:
         n_req, max_batch, rate, hbm, prefill_tok = 1200, 64, 24.0, 96, 256
     else:
-        n_req, max_batch, rate, hbm, prefill_tok = 4000, 128, 48.0, 256, 1024
+        n_req, max_batch, rate, hbm, prefill_tok = (BATCHING_FULL_REQUESTS,
+                                                    128, 48.0, 256, 1024)
     rng = np.random.default_rng(0)
     ticks = poisson_arrival_ticks(n_req, rate=rate, seed=0, burst_frac=0.6,
                                   silence_ticks=2)
@@ -1206,7 +1231,7 @@ def phase_device(ctx: Context) -> dict:
 #: the kernels whose compiled functions the build line names (the
 #: ``-Xptxas -v`` lines of each template instance follow its name)
 NAMED_INSTANCES = ("divisibility_mask", "factorize_squarefree", "gcd",
-                   "factorize_limbs", "engine_baseline")
+                   "factorize_limbs", "engine_baseline", "engine_pfcs")
 
 
 def phase_build(ctx: Context) -> dict:
@@ -1225,12 +1250,17 @@ def phase_build(ctx: Context) -> dict:
             "launch_floor": "empty kernel, 1 block of 256 threads, "
                             "csrc/launch_floor.cu through ctypes, graph "
                             "replay",
-            "ptxas": {name: [ln.strip() for ln in
-                             k.build_log().splitlines()
-                             if "registers" in ln or "spill" in ln
-                             or (name in NAMED_INSTANCES
-                                 and "entry function" in ln)]
-                      for name, k in kernels.KERNELS.items()}}
+            "ptxas": {name: ptxas_lines(k) for name, k in
+                      kernels.KERNELS.items()}}
+
+
+def ptxas_lines(kernel) -> list:
+    """``kernel``'s ``-Xptxas -v`` lines: registers, shared memory and
+    spills of each compiled function, after its name for the kernels of
+    ``NAMED_INSTANCES``."""
+    return [ln.strip() for ln in kernel.build_log().splitlines()
+            if "registers" in ln or "spill" in ln
+            or (kernel.name in NAMED_INSTANCES and "entry function" in ln)]
 
 
 def fibonacci_pairs(limit: int) -> list:
@@ -1409,9 +1439,10 @@ def phase_batching(ctx: Context) -> dict:
 
 
 def phase_batching_full(ctx: Context) -> dict:
-    """``case_batching``'s full configuration (4000 requests, 128 slots,
-    1024-token prefill budget).  It has no checked-in keys: ``kv="sharded"``
-    is held against ``kv="vec"`` on the same trace."""
+    """``case_batching``'s full configuration (128 slots, 256 HBM pages,
+    1024-token prefill budget), its 4000 requests cut to
+    ``BATCHING_FULL_REQUESTS``.  It has no checked-in keys:
+    ``kv="sharded"`` is held against ``kv="vec"`` on the same trace."""
     arrivals, sizes = batching_trace(smoke=False)
     vec, vec_trail = run_batching(arrivals, sizes, "slot_vec")
     return {"requests": len(arrivals), **sizes,
@@ -1598,9 +1629,10 @@ def phase_launcher_wide(ctx: Context) -> dict:
 def tree_diff(a, b, path: str = "") -> list:
     """The paths at which two results of the engine's scans differ:
     counters and final state, int arrays as int64, floats by their bits
-    (ARC's p); ``visits`` (the kernel's own count) is not compared."""
+    (ARC's p); ``visits`` and ``placement`` (the kernel's own reports) are
+    not compared."""
     if isinstance(a, dict):
-        return [p for k in a if k != "visits"
+        return [p for k in a if k not in ("visits", "placement")
                 for p in tree_diff(a[k], b[k], f"{path}/{k}")]
     if isinstance(a, (tuple, list)):
         return [p for i, (x, y) in enumerate(zip(a, b))
@@ -1810,6 +1842,8 @@ class EngineCapture:
                 "name": kname,
                 "system": args[1] if kname == "engine_baseline" else "pfcs",
                 "shape": list(args[0].shape), "ms": ms,
+                # where the kernel kept its state (None: the plain version)
+                "placement": out["placement"],
                 # (the plain version, on the CPU, counts no visits)
                 "visits": (None if out["visits"] is None
                            else int(out["visits"].sum())),
@@ -1860,6 +1894,20 @@ def check_traces(length: int = None) -> list:
             _make_trace("graph_walk_trace", n_keys=300,
                         relationship_density=0.7,
                         n_accesses=length * 3 // 5, seed=4)]
+
+
+def spread_traces(traces) -> list:
+    """``traces`` with every key (and relationship member) multiplied by
+    ``KEY_SPREAD``: the same accesses over a key space that many times as
+    large."""
+    from repro_torch.core import Trace
+
+    f = KEY_SPREAD
+    return [Trace(name=f"{tr.name} x{f}",
+                  accesses=np.asarray(tr.accesses, dtype=np.int64) * f,
+                  relationships=[tuple(int(k) * f for k in g)
+                                 for g in tr.relationships],
+                  n_keys=tr.n_keys * f) for tr in traces]
 
 
 def arc_swing_accesses(c: int, length: int = 200) -> np.ndarray:
@@ -2030,6 +2078,29 @@ def phase_engine_check(ctx: Context) -> dict:
     if p_end != path[-1]:
         raise AssertionError(f"arc p: kernel {p_end!r} != plain {path[-1]!r}")
 
+    # the state's placements: the batches above keep it in shared memory;
+    # a key space past shared memory leaves the per-key arrays in global
+    # memory, and levels past it every array
+    placements = {"shared": lines[:]}
+    few = check_traces(PLACEMENT_LENGTH)
+    for mode, batch, levels in (("keys global", spread_traces(few),
+                                 CHECK_CAPS), ("global", few, GLOBAL_CAPS)):
+        acc_p, k_p = batch_inputs(batch)
+        tables_p = pfcs_table_inputs(batch, levels, k_p)
+        caps_p = [c for _, c in levels]
+        n_lines = len(lines)
+        for policy in BASELINES:
+            record(f"{policy} {k_p} keys {caps_p}, {mode}", "engine_baseline",
+                   (acc_p, policy, caps_p, k_p))
+        record(f"pfcs {k_p} keys {caps_p}, {mode}", "engine_pfcs",
+               (acc_p, caps_p, k_p, 4, 8, True, False, *tables_p))
+        placements[mode] = lines[n_lines:]
+    for mode, ls in placements.items():
+        got = {ln["placement"]["mode"] for ln in ls if ln["placement"]}
+        if got - {mode}:
+            raise AssertionError(f"engine_check: the {mode} batches ran "
+                                 f"with their state {sorted(got)}")
+
     ctx.engine_check = {}
     for name, rs in rows.items():
         b_ms, b_by = bound_ms(sum(r["bytes"] for r in rs),
@@ -2042,7 +2113,9 @@ def phase_engine_check(ctx: Context) -> dict:
             "bound_ms": b_ms, "bound_by": b_by}
     return {"checks": lines, "arc_p_range": [min(path), max(path)],
             "arc_p_end": p_end, "held_at_capacity_1": held,
-            "check_batch": ctx.engine_check}
+            "check_batch": ctx.engine_check,
+            "placements_checked": {m: len(ls) for m, ls in
+                                   placements.items()}}
 
 
 def mean_rows(rows: list) -> dict:
@@ -2149,10 +2222,14 @@ def phase_table1(ctx: Context) -> dict:
                 raise AssertionError(
                     f"table1 {wname} {system}: seed-0 hits "
                     f"{(stats[0].hits, stats[0].demand_accesses)} != {seed0}")
+            longest = max(tr.length for tr in traces)
             rows[system] = {
                 "hit_rate_mean": float(np.mean([s.hit_rate for s in stats])),
                 "hit_rate_seed0": stats[0].hit_rate,
                 "engine_wall_s": wall, "kernel_ms": call["ms"],
+                # the latency of one serial step: the longest trace's
+                "ns_per_step": call["ms"] * 1e6 / longest,
+                "placement": call["placement"],
                 "bound_ms": call["bound_ms"], "bound_by": call["bound_by"],
                 "work": call["work"], "visits": call["visits"],
                 "bytes": call["bytes"],
@@ -2193,7 +2270,10 @@ def phase_table1(ctx: Context) -> dict:
                       required=["divisibility_mask", "factorize_squarefree"],
                       shape_launches=capture.launches)
     return {"launches": launches, "engine": ctx.engine_path,
-            "flat_kernels_exact": [r["name"] for r in rows]}
+            "flat_kernels_exact": [r["name"] for r in rows],
+            # (each launch's dynamic shared bytes are in its placement)
+            "engine_ptxas": {name: ptxas_lines(kernels.KERNELS[name])
+                             for name in ENGINE}}
 
 
 PHASES = [

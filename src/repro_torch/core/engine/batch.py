@@ -178,12 +178,12 @@ def simulate_batch(traces: Sequence[Trace], system: str,
                         prefetch_trigger == "always",
                         *stack_tables(tables, dev))
         out = {k: v.cpu() for k, v in out.items()
-               if k not in ("state", "visits")}
+               if k not in ("state", "visits", "placement")}
         return [_pfcs_stats(caps, out, tables[i], i) for i in range(n)]
 
     out = baseline_scan(acc, system, [c for _, c in caps], n_keys)
     out = {k: v.cpu() for k, v in out.items()
-           if k not in ("state", "visits")}
+           if k not in ("state", "visits", "placement")}
     return [_baseline_stats(system, caps, out, i) for i in range(n)]
 
 

@@ -267,20 +267,53 @@ def run_all_systems(trace: Trace,
 
 def fast_lru_hit_rate(accesses: np.ndarray, capacity: int,
                       device="cuda") -> float:
-    """Exact LRU hit rate of one cache of ``capacity`` over ``accesses``
-    (non-negative keys), run by the engine's LRU scan on ``device``."""
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels.engine import baseline_scan
+    """Exact LRU hit rate of one cache of ``capacity`` over ``accesses``,
+    run by the engine's LRU scan on ``device``.
 
-    dev = resolve_device(device)
-    acc = np.asarray(accesses, dtype=np.int64)
-    if acc.size == 0:
-        return 0.0
-    if acc.min() < 0 or acc.max() >= 2**31 - 1:
-        raise ValueError("fast_lru_hit_rate takes keys in [0, 2**31 - 1)")
+    Keys are taken as int32, as the reference takes them, and relabelled
+    densely on the host (``np.unique``), which leaves LRU's hits as they
+    are.  Only the key -1 is refused: the reference's scan marks an empty
+    slot with it (``src/repro/core/simulator.py``), so there a -1 access
+    "hits" every empty slot, a fault of the reference the port does not
+    copy.  A trace past the scan's int32 stamps runs in segments: each
+    opens with the cache's keys as the last left them, oldest first (into
+    an empty cache, distinct keys: no hit, and the same LRU order), then
+    takes as many accesses as the stamps allow."""
     import torch
 
-    keys = torch.from_numpy(acc.astype(np.int32)[None, :]).to(dev)
-    out = baseline_scan(keys, "lru", [int(capacity)], int(acc.max()) + 1)
-    hits = int(out["hits"].sum())
-    return hits / max(1, len(acc))
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.engine import baseline_scan
+
+    from .engine.policies_vec import POLICY_TICKS
+
+    dev = resolve_device(device)
+    acc = np.asarray(accesses, dtype=np.int32).reshape(-1)
+    if acc.size == 0:
+        return 0.0
+    if (acc == -1).any():
+        raise ValueError(
+            "fast_lru_hit_rate refuses the key -1: the reference's scan "
+            "marks an empty slot with -1, so a -1 access hits every empty "
+            "slot there")
+    uniq, dense = np.unique(acc, return_inverse=True)
+    dense = dense.astype(np.int32).reshape(-1)
+    cap = int(capacity)
+    longest = (engine.STAMP_SPACE - 1) // POLICY_TICKS
+    if len(dense) > longest and cap >= longest:
+        raise ValueError(f"capacity {cap} leaves no room in a "
+                         f"{longest}-access segment")
+    carried = np.zeros(0, dtype=np.int32)
+    hits, at = 0, 0
+    while at < len(dense):
+        take = len(dense) - at if len(dense) <= longest else longest - cap
+        seg = np.concatenate([carried, dense[at:at + take]])
+        out = baseline_scan(torch.from_numpy(seg[None, :]).to(dev), "lru",
+                            [cap], len(uniq))
+        hits += int(out["hits"].sum())
+        at += take
+        pol = out["state"]["pol"]
+        keys, stamps = pol["keys"][0].cpu().numpy(), pol["t"][0].cpu().numpy()
+        held = keys != -1
+        carried = keys[held][np.argsort(stamps[held], kind="stable")]
+    return hits / len(acc)

@@ -10,42 +10,68 @@
 // version is the same step functions in repro_torch/core/engine/ run as a
 // Python loop over the trace (repro_torch/kernels/engine.py).
 //
-// Layout.  One thread block of kThreads threads per trace of the batch, one
-// launch per simulate_batch call.  The block walks its trace step by step;
-// each step's slot scans (the key match, count, the masked arg-min,
-// first_empty, the shadow's rank count) are block-wide folds
-// (engine_scan.cuh) with the reference's lowest-index tie rule, and thread
-// 0 makes the step's few slot writes.  The state is the reference's arrays
-// (int32, in global memory, one region per trace), initialised here; where
-// each array starts in a region is the wrapper's to say (``offsets``, from
-// kernels/engine.py::baseline_layout), so the layout lives in one place; ARC's
-// adaptive target p is a double in registers (no fast-math: its arithmetic
-// is CPython's), written out at the end with the counters.
-//
 // What bounds it.  A trace is a serial chain of steps: each step's
-// decisions wait on the previous step's writes, so the only parallelism is
-// across traces (blocks) and within a step's scans (threads).  Each scan
-// costs two block barriers and a shuffle tree whatever its length, so
-// short arrays are bound by that latency, not by bytes or operations.  The
-// bound the smoke run states (bytes over 3.35 TB/s, and over 16.7 T int32
-// operations/s the slot words the algorithm must read for this trace,
-// counted by chip_smoke.py apart from this kernel) is therefore loose.
-// ``visits`` counts the slot words this kernel's scans read, a diagnostic.
+// decisions wait on the previous step's writes, so a step's latency, not
+// bytes or operations, sets the time.  The design makes a step a few
+// dependent loads and stores in shared memory and lets no barrier into it:
+//
+//   * one block of kThreads threads per trace; the shadow and the policy
+//     touch disjoint state, so thread 0 (warp 0) runs the shadow and thread
+//     32 (warp 1) the policy, each over kChunk steps, writing each step's
+//     tier and hit to shared memory; the block meets once a chunk to count
+//     them.  The other threads only initialise the state and copy it out.
+//   * the state lives in dynamic shared memory where it fits (see
+//     engine_list.cuh: mode 0 every array read, mode 1 the slot arrays, the
+//     per-key arrays in global memory, mode 2 none); stamp arrays, which
+//     the kernel writes and never reads, stay in the global region.
+//   * no slot array is folded.  A key's slot comes from a per-key map;
+//     each list keeps its live slots in stamp order (engine_list.cuh's
+//     Chain), exact because every stamp a step writes (``now``) is the
+//     newest in its list: LRU's and FIFO's victim, 2Q's queue fronts, ARC's
+//     four LRU ends are list heads.  The reference's tie rules hold: live
+//     stamps are unique; empty slots carry the stamps ``i - n`` (or 0 for
+//     ARC, whose arg-min masks them) and sit, in slot order, before the
+//     live ones; 2Q's freed ghost slots (stamp -I32MAX) are a free set
+//     taken lowest first; ARC's pushes take the lowest free slot.
+//   * the shadow's tier: the rank of the key among the shadow's live
+//     entries (1 + those touched since) against the levels' cumulative
+//     capacities.  The shadow is one list in stamp order with the node at
+//     rank cums[l] of each level marked and each slot's tier stored; a
+//     touch moves the slot to the newest end, and each boundary above the
+//     slot's tier moves one node newer (its old node drops one tier).  L
+//     steps, no count.
+//   * LIRS keeps its per-key arrays; the resident HIR queue is a list over
+//     the keys in queue-stamp order, and the LIR bottom (least stack stamp
+//     among LIR keys) a pointer over the trace: every key that becomes or
+//     stays LIR takes the step's stamp, so the bottom never moves back; it
+//     is the first step whose key is LIR and still holds that step's stamp.
+//   * ARC's adaptive target p is a double in registers (no fast-math: its
+//     arithmetic is CPython's), written out at the end.
+//
+// tests/test_torch_engine_model.py runs the same structures in Python
+// against the plain step functions and the reference's scalar oracles.
 //
 // C entry: pfcs_engine_baseline(acc, n, length, policy, cums, n_levels,
 //   total, s1, s2, s3, n_keys, state, state_words, offsets, n_offsets,
-//   p_out, counters, visits, stream) -> cudaGetLastError().  acc is
-//   (n, length) int32 keys, -1 a padded (no-op) step; cums the levels'
-//   cumulative capacities; s1..s3 the policy's sizes (2Q: kin, kout, km;
-//   LIRS: capacity, llirs); offsets a host array of the n_offsets words at
-//   which each of the trace's arrays starts in its state_words region
-//   (shk, sht, then the policy's in baseline_layout's order); counters
-//   (n, n_levels + 3) int32: hits per tier (MEM last), misses, demand
-//   accesses; visits (n,) int64; p_out (n,) double.
+//   placement, p_out, counters, visits, stream) ->
+//   cudaGetLastError().  acc is (n, length) int32 keys, -1 a padded (no-op)
+//   step; cums the levels' cumulative capacities (on the card); s1..s3 the
+//   policy's sizes (2Q: kin, kout, km; LIRS: capacity, llirs); offsets a
+//   host array of the n_offsets words at which each array starts in a
+//   trace's state_words region: baseline_layout's arrays, then the
+//   kernel's own (kernels/engine.py::baseline_arena, in kKinds' order);
+//   placement (host, 2 ints) receives the mode and the dynamic shared
+//   bytes; counters (n, n_levels +
+//   3) int32: hits per tier (MEM last), misses, demand accesses; visits
+//   (n,) int64: the steps the LIR bottom's pointer walked; p_out (n,)
+//   double.
 
 #include <cuda_runtime.h>
 
-#include "engine_scan.cuh"
+#include <cstring>
+#include <type_traits>
+
+#include "engine_list.cuh"
 
 using namespace pfcs_engine;
 
@@ -55,20 +81,400 @@ enum Policy { kLRU = 0, kFIFO = 1, kTwoQ = 2, kARC = 3, kLIRS = 4 };
 constexpr int kMaxLevels = 8;
 constexpr int kPolicyTicks = 4;
 constexpr int kLIR = 0, kHIR = 1, kNoStatus = 2;
-// the most arrays a trace's state has (ARC: the shadow's two, eight lists)
-constexpr int kMaxArrays = 10;
-// the arrays each policy's state has (kernels/engine.py::baseline_layout)
-constexpr int kArrays[5] = {4, 4, 8, 10, 8};
+constexpr int kThreads = 128;
+constexpr int kShadowThread = 0, kPolicyThread = 32;
+constexpr int kChunk = 1024;
+constexpr unsigned char kPad = 0xFF;
+// dynamic shared bytes the kernel keeps for itself: the counters, the
+// shadow's boundary nodes, a chunk's tiers and hits
+constexpr int kMeta = (4 * (2 * kMaxLevels + 3) + 2 * kChunk + 15) / 16 * 16;
 
-// where each array starts in a trace's state region, in words
-struct Offsets {
-  long long at[kMaxArrays];
+// each array of a trace's state, in offsets' order (plan_arena's kinds):
+// baseline_layout's outputs, then the shadow's links, tiers and key map,
+// then the policy's own
+const char* const kKinds[5] = {
+    "SGSG" "sSK" "sK",
+    "SGSG" "sSK" "sK",
+    "SGSGSGSG" "sSK" "sssbbK",
+    "SGSGSGSGSG" "sSK" "sbbsbbsbbsbbK",
+    "SGKKGKGG" "sSK" "k"};
+__host__ __device__ constexpr int outputs(int p) {
+  return p == kTwoQ ? 8 : p == kARC ? 10 : p == kLIRS ? 8 : 4;
+}
+
+template <bool kShared>
+using Link = typename std::conditional<kShared, unsigned short, int>::type;
+
+struct Params {
+  const int* acc;
+  long long length;
+  const int* cums;
+  int policy, n_levels, total, s1, s2, s3, n_keys;
+  int* state;
+  long long state_words;
+  double* p_out;
+  int* counters;
+  long long* visits;
 };
 
-struct Block {
-  long long* red;      // shared scratch of block_reduce
-  long long visits;    // slot words scanned (thread 0's count is kept)
+// ------------------------------------------------------------------------ //
+// the tier shadow                                                           //
+// ------------------------------------------------------------------------ //
+
+template <typename L>
+struct Shadow {
+  int* keys;
+  int* t;
+  int* tier;     // each slot's tier: its rank against cums
+  int* slot;     // key -> slot, kNil when not in the shadow
+  int* bound;    // (shared) the node at rank cums[l] of each level
+  Chain<L> ch;
+  int n_levels;
+
+  // the key's tier before the touch (n_levels when not in the shadow),
+  // then the touch
+  __device__ int access(int key, int now) {
+    int m = slot[key], tr, s;
+    if (m == kNil) {                   // the LRU slot takes the key
+      tr = n_levels;
+      s = n_levels - 1;
+      m = ch.head;
+      const int old = keys[m];
+      if (old != kEmpty) slot[old] = kNil;
+      keys[m] = key;
+      slot[key] = m;
+    } else {
+      tr = s = tier[m];
+    }
+    const Node<L> nd = ch.node[m];     // the loop below moves no link
+    for (int l = 0; l < s; ++l) {      // each boundary newer than m
+      const int b = bound[l];
+      tier[b] = l + 1;
+      const int nb = ch.next(b);
+      bound[l] = nb == kNil ? m : nb;
+    }
+    if (bound[s] == m) {
+      const int nb = Chain<L>::at(nd.nxt);
+      bound[s] = nb == kNil ? m : nb;
+    }
+    ch.to_tail(m, nd);
+    tier[m] = 0;
+    t[m] = now;
+    return tr;
+  }
 };
+
+// ------------------------------------------------------------------------ //
+// LRU / FIFO                                                                //
+// ------------------------------------------------------------------------ //
+
+template <typename L>
+struct LruPolicy {
+  int* keys;
+  int* t;
+  int* where;     // key -> slot
+  Chain<L> ch;    // every slot, empty ones first
+  bool restamp;   // LRU; FIFO's hits keep their insertion stamp
+
+  __device__ bool access(int key, int now) {
+    const int m = where[key];
+    if (m != kNil) {
+      if (restamp) {
+        t[m] = now;
+        ch.to_tail(m);
+      }
+      return true;
+    }
+    const int v = ch.head;
+    const int old = keys[v];
+    if (old != kEmpty) where[old] = kNil;
+    keys[v] = key;
+    t[v] = now;
+    where[key] = v;
+    ch.to_tail(v);
+    return false;
+  }
+};
+
+// ------------------------------------------------------------------------ //
+// 2Q: A1in (FIFO), A1out (ghosts), Am (LRU)                                 //
+// ------------------------------------------------------------------------ //
+
+template <typename L>
+struct TwoQPolicy {
+  enum { kA1 = 0, kAO = 1, kAM = 2 };
+  int* k[3];
+  int* t[3];
+  int* where;       // key -> slot * 4 + list
+  Chain<L> a1, ao, am;
+  FreeSet freed;    // A1out slots freed by a second touch (stamp -I32MAX)
+
+  __device__ __forceinline__ void put(int lst, int v, int key, int now) {
+    const int old = k[lst][v];
+    if (old != kEmpty) where[old] = kNil;
+    k[lst][v] = key;
+    t[lst][v] = now;
+    where[key] = v * 4 + lst;
+  }
+
+  __device__ bool access(int key, int now) {
+    const int code = where[key];
+    const int which = code == kNil ? -1 : (code & 3), m = code >> 2;
+    if (which == kAM) {               // Am hit: touch
+      t[kAM][m] = now;
+      am.to_tail(m);
+      return true;
+    }
+    if (which == kA1) return true;    // A1in hits do not restamp
+    if (which == kAO) {
+      // second touch within the window: the key joins Am over its LRU (or
+      // empty) slot; the ghost's slot is freed, stamped below every other
+      // so that the next push reuses it
+      const int v = am.head;
+      put(kAM, v, key, now);
+      am.to_tail(v);
+      k[kAO][m] = kEmpty;
+      t[kAO][m] = -kI32Max;
+      ao.unlink(m);
+      freed.add(m);
+      return false;
+    }
+    // cold: into A1in over its oldest slot; a displaced key becomes a ghost
+    const int v = a1.head;
+    const int displaced = k[kA1][v];
+    k[kA1][v] = key;
+    t[kA1][v] = now;
+    where[key] = v * 4 + kA1;
+    a1.to_tail(v);
+    if (displaced != kEmpty) {
+      int g = freed.first();
+      if (g == kNil) {
+        g = ao.head;
+        ao.unlink(g);
+      } else {
+        freed.remove(g);
+      }
+      put(kAO, g, displaced, now);
+      ao.append(g);
+    }
+    return false;
+  }
+};
+
+// ------------------------------------------------------------------------ //
+// ARC: T1, T2, B1 (c slots each), B2 (2c + 1)                               //
+// ------------------------------------------------------------------------ //
+
+template <typename L>
+struct ArcList {
+  int* k;
+  int* t;
+  Chain<L> ch;    // the live slots
+  FreeSet fs;
+  int n;
+};
+
+template <typename L>
+struct ArcPolicy {
+  enum { kT1 = 0, kT2 = 1, kB1 = 2, kB2 = 3 };
+  ArcList<L> l[4];
+  int* where;     // key -> slot * 4 + list
+  int c;
+  double p;
+
+  // the arg-min stamp over the occupied slots (0 when none)
+  template <int I>
+  __device__ __forceinline__ int lru() const {
+    return l[I].n ? l[I].ch.head : 0;
+  }
+
+  template <int I>
+  __device__ void pop(int slot, bool forget) {
+    ArcList<L>& x = l[I];
+    const int key = x.k[slot];
+    if (key == kEmpty) return;
+    if (forget) where[key] = kNil;
+    x.k[slot] = kEmpty;
+    x.ch.unlink(slot);
+    x.fs.add(slot);
+    x.n -= 1;
+  }
+
+  // at the first free slot (slot 0 when there is none)
+  template <int I>
+  __device__ void push(int key, int now) {
+    ArcList<L>& x = l[I];
+    int e = x.fs.first();
+    if (e == kNil) {
+      e = 0;
+      pop<I>(0, true);
+    }
+    x.k[e] = key;
+    x.t[e] = now;
+    x.fs.remove(e);
+    x.ch.append(e);
+    x.n += 1;
+    where[key] = e * 4 + I;
+  }
+
+  // REPLACE: demote the LRU of T1 (-> B1) or of T2 (-> B2), steered by p
+  __device__ void replace(bool in_b2, int now) {
+    const int p_int = static_cast<int>(p);      // int(p): p >= 0
+    const int n1 = l[kT1].n, n2 = l[kT2].n;
+    const bool cond_t1 = n1 > 0 && ((in_b2 && n1 == p_int) || n1 > p_int);
+    if (cond_t1 || (n2 == 0 && n1 > 0)) {
+      const int v = lru<kT1>();
+      const int key = l[kT1].k[v];
+      pop<kT1>(v, false);
+      push<kB1>(key, now);
+    } else if (n2 > 0) {
+      const int v = lru<kT2>();
+      const int key = l[kT2].k[v];
+      pop<kT2>(v, false);
+      push<kB2>(key, now);
+    }
+  }
+
+  __device__ bool access(int key, int now) {
+    const int code = where[key];
+    const int which = code == kNil ? -1 : (code & 3), m = code >> 2;
+    if (which == kT1) {               // Case I via T1: to T2's MRU
+      pop<kT1>(m, false);
+      push<kT2>(key, now);
+      return true;
+    }
+    if (which == kT2) {               // Case I via T2: touch
+      l[kT2].t[m] = now;
+      l[kT2].ch.to_tail(m);
+      return true;
+    }
+    if (which == kB1 || which == kB2) {  // Cases II / III: a ghost hit
+      const double n_b1 = l[kB1].n, n_b2 = l[kB2].n;
+      if (which == kB1) {
+        const double delta = fmax(1.0, n_b2 / fmax(n_b1, 1.0));
+        p = fmin(static_cast<double>(c), p + delta);
+      } else {
+        const double delta = fmax(1.0, n_b1 / fmax(n_b2, 1.0));
+        p = fmax(0.0, p - delta);
+      }
+      replace(which == kB2, now);
+      if (which == kB1) pop<kB1>(m, false);
+      else pop<kB2>(m, false);
+      push<kT2>(key, now);
+      return false;
+    }
+    // Case IV: a miss
+    const int n_t1 = l[kT1].n, n_b1 = l[kB1].n;
+    const int l1 = n_t1 + n_b1;
+    const int total = l1 + l[kT2].n + l[kB2].n;
+    const bool case_a = l1 == c;
+    const bool drop_b1 = case_a && n_t1 < c;
+    const bool drop_t1 = case_a && n_t1 >= c;
+    const bool case_b = !case_a && total >= c;
+    if (drop_b1) pop<kB1>(lru<kB1>(), true);
+    if (drop_t1) pop<kT1>(lru<kT1>(), true);
+    if (case_b && total == 2 * c) pop<kB2>(lru<kB2>(), true);
+    if (drop_b1 || case_b) replace(false, now);
+    push<kT1>(key, now);
+    return false;
+  }
+};
+
+// ------------------------------------------------------------------------ //
+// LIRS: status[K], s_t[K], q_t[K], res[K]                                   //
+// ------------------------------------------------------------------------ //
+
+template <typename L>
+struct LirsPolicy {
+  int *status, *s_t, *q_t, *res;
+  Chain<L> q;           // the resident HIR keys in queue-stamp order
+  const int* acc;       // the trace: the LIR bottom's pointer walks it
+  long long bp, walked;
+  int capacity, llirs, n_lir, n_res;
+
+  // the LIR key of least stack stamp and that stamp; kI32Max (and key
+  // kNil) when no key is LIR
+  __device__ int bottom(int& key) {
+    key = kNil;
+    if (n_lir == 0) return kI32Max;
+    for (;; ++bp, ++walked) {
+      const int k = acc[bp];
+      const int stamp = static_cast<int>(bp * kPolicyTicks + 1);
+      if (k >= 0 && status[k] == kLIR && s_t[k] == stamp) {
+        key = k;
+        return stamp;
+      }
+    }
+  }
+
+  // bottom LIR -> HIR: leaves the stack; enters Q if resident
+  __device__ void demote(int tick, int b) {
+    if (n_lir <= 0) return;
+    s_t[b] = -1;
+    status[b] = kHIR;
+    if (res[b]) {
+      q_t[b] = tick;
+      q.append(b);
+    }
+    n_lir -= 1;
+  }
+
+  __device__ void evict_resident_hir() {
+    const int v = q.head;
+    if (v == kNil) return;
+    q.unlink(v);
+    q_t[v] = -1;
+    res[v] = 0;
+    n_res -= 1;
+  }
+
+  __device__ bool access(int key, int now) {
+    const bool hit = res[key] != 0;
+    if (status[key] == kLIR) {        // LIR hit: to the stack's top
+      s_t[key] = now + 1;
+      return hit;
+    }
+    if (!hit) {                       // miss: make room first
+      if (n_res >= capacity) {
+        evict_resident_hir();
+        if (n_res >= capacity) {      // all-LIR corner
+          int b;
+          bottom(b);
+          demote(now, b);
+          evict_resident_hir();
+        }
+      }
+      res[key] = 1;
+      n_res += 1;
+    }
+    int b;
+    const int b_t = bottom(b);        // after the demotes moved it
+    const int st = s_t[key];
+    const bool ins = st >= 0 && st >= b_t;
+    const bool cold = !hit && n_lir < llirs && !ins;
+    const bool to_lir = cold || ins;
+    // a resident key that is not LIR is in Q, and only such a key
+    s_t[key] = now + 1;
+    status[key] = to_lir ? kLIR : kHIR;
+    if (!to_lir) {                    // HIR: to Q's tail
+      q_t[key] = now + 2;
+      if (hit) q.to_tail(key);
+      else q.append(key);
+    } else if (hit) {                 // promoted: leaves Q
+      q_t[key] = -1;
+      q.unlink(key);
+    }
+    if (to_lir) n_lir += 1;
+    // ``ins`` means a LIR key lies at or below the key's old stamp, and the
+    // key joined the LIR set with the newest stamp: the bottom is unchanged
+    if (ins && n_lir > llirs) demote(now + 2, b);
+    return hit;
+  }
+};
+
+// ------------------------------------------------------------------------ //
+// the trace loop                                                            //
+// ------------------------------------------------------------------------ //
 
 __device__ __forceinline__ void fill(int* a, int n, int value) {
   for (int i = threadIdx.x; i < n; i += kThreads) a[i] = value;
@@ -79,448 +485,222 @@ __device__ __forceinline__ void fill_stamps(int* a, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) a[i] = i - n;
 }
 
-// ------------------------------------------------------------------------ //
-// LRU / FIFO: keys[c], t[c]                                                 //
-// ------------------------------------------------------------------------ //
-
-__device__ bool lru_step(int* keys, int* ts, int c, int key, int now,
-                         bool restamp, Block& blk) {
-  long long v[2] = {kNone, kNone};
-  for (int i = threadIdx.x; i < c; i += kThreads) {
-    if (keys[i] == key) v[0] = min64(v[0], i);
-    v[1] = min64(v[1], pack(ts[i], i));
-  }
-  block_reduce(v, 0u, blk.red);
-  blk.visits += 2LL * c;
-  const bool hit = v[0] != kNone;
-  if (threadIdx.x == 0) {
-    if (hit) {
-      if (restamp) ts[v[0]] = now;
-    } else {
-      const int victim = index_of(v[1]);
-      keys[victim] = key;
-      ts[victim] = now;
-    }
-  }
-  return hit;
+// a chain of every slot of a list, in slot order, its links array j
+// (cooperative)
+template <bool kS>
+__device__ __forceinline__ void init_list(Chain<Link<kS>>& ch, const Arena& ar,
+                                          int j, int n, int* region,
+                                          unsigned char* smem) {
+  ch.node = place<Node<Link<kS>>, kS>(ar, j, region, smem);
+  ch.init_ordered(n, threadIdx.x, kThreads);
 }
 
-// ------------------------------------------------------------------------ //
-// 2Q: a1k/a1t[kin], aok/aot[kout], amk/amt[km]                              //
-// ------------------------------------------------------------------------ //
-
-__device__ bool twoq_step(int* const* s, int kin, int kout, int km, int key,
-                          int now, Block& blk) {
-  int *a1k = s[0], *a1t = s[1], *aok = s[2], *aot = s[3];
-  int *amk = s[4], *amt = s[5];
-  long long v[6] = {kNone, kNone, kNone, kNone, kNone, kNone};
-  for (int i = threadIdx.x; i < km; i += kThreads) {
-    if (amk[i] == key) v[0] = min64(v[0], i);
-    v[1] = min64(v[1], pack(amt[i], i));
-  }
-  for (int i = threadIdx.x; i < kin; i += kThreads) {
-    if (a1k[i] == key) v[2] = min64(v[2], i);
-    v[3] = min64(v[3], pack(a1t[i], i));
-  }
-  for (int i = threadIdx.x; i < kout; i += kThreads) {
-    if (aok[i] == key) v[4] = min64(v[4], i);
-    v[5] = min64(v[5], pack(aot[i], i));
-  }
-  block_reduce(v, 0u, blk.red);
-  blk.visits += 2LL * (km + kin + kout);
-  const bool in_am = v[0] != kNone, in_a1 = v[2] != kNone;
-  const bool in_ao = v[4] != kNone;
-  const bool hit = in_am || in_a1;
-  if (threadIdx.x == 0) {
-    if (in_am) {
-      amt[v[0]] = now;                 // Am hit: touch (A1in hits do not)
-    } else if (!hit && in_ao) {
-      // second touch within the window: the ghost goes, the key joins Am
-      // over its LRU/empty slot; the freed ghost slot is stamped below
-      // every init stamp so that the next push reuses it
-      const int am_v = index_of(v[1]);
-      amk[am_v] = key;
-      amt[am_v] = now;
-      aok[v[4]] = kEmpty;
-      aot[v[4]] = -kI32Max;
-    } else if (!hit) {
-      // cold insert into A1in; its oldest occupant becomes a ghost
-      const int a1_v = index_of(v[3]);
-      const int displaced = a1k[a1_v];
-      a1k[a1_v] = key;
-      a1t[a1_v] = now;
-      if (displaced != kEmpty) {
-        const int ao_v = index_of(v[5]);
-        aok[ao_v] = displaced;
-        aot[ao_v] = now;
-      }
-    }
-  }
-  return hit;
-}
-
-// ------------------------------------------------------------------------ //
-// ARC: t1k/t1t[c], t2k/t2t[c], b1k/b1t[c], b2k/b2t[2c+1]; p in a register   //
-// ------------------------------------------------------------------------ //
-
-// One scan of a list into v[0..3]: the key's slot, the arg-min stamp over
-// the occupied slots, the occupied count, the first free slot.
-__device__ __forceinline__ void arc_scan(const int* k, const int* t, int n,
-                                         int key, long long* v) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int kk = k[i];
-    const bool occ = kk != kEmpty;
-    if (kk == key) v[0] = min64(v[0], i);
-    v[1] = min64(v[1], pack(occ ? t[i] : kI32Max, i));
-    v[2] += occ;
-    if (!occ) v[3] = min64(v[3], i);
-  }
-}
-
-struct ArcList {
-  int* k;
-  int* t;
-  long long match;   // the key's slot, or kNone
-  int lru;           // arg-min stamp over the occupied slots (0 if none)
-  int n;             // occupied slots
-  long long free;    // first free slot, or kNone
-};
-
-__device__ __forceinline__ void arc_pop(ArcList& l, int slot) {
-  if (threadIdx.x == 0) l.k[slot] = kEmpty;
-  l.free = min64(l.free, slot);
-  l.n -= 1;
-}
-
-__device__ __forceinline__ void arc_push(ArcList& l, int key, int now) {
-  // first_empty: the first free slot, slot 0 when there is none
-  const int e = found_or(l.free, 0);
-  if (threadIdx.x == 0) {
-    l.k[e] = key;
-    l.t[e] = now;
-  }
-}
-
-// ARC REPLACE: demote the LRU of T1 (-> B1 ghost) or of T2 (-> B2), steered
-// by p.  Reads each slot it moves on thread 0, which alone writes.
-__device__ void arc_replace(ArcList& t1, ArcList& t2, ArcList& b1,
-                            ArcList& b2, double p, bool in_b2, int now) {
-  const int p_int = static_cast<int>(p);      // int(p): p >= 0
-  const bool cond_t1 =
-      t1.n > 0 && ((in_b2 && t1.n == p_int) || t1.n > p_int);
-  const bool do_t1 = cond_t1 || (t2.n == 0 && t1.n > 0);
-  const bool do_t2 = !cond_t1 && t2.n > 0;
-  if (do_t1) {
-    const int k1 = threadIdx.x == 0 ? t1.k[t1.lru] : 0;
-    arc_pop(t1, t1.lru);
-    arc_push(b1, k1, now);
-  }
-  if (do_t2) {
-    const int k2 = threadIdx.x == 0 ? t2.k[t2.lru] : 0;
-    arc_pop(t2, t2.lru);
-    arc_push(b2, k2, now);
-  }
-}
-
-__device__ bool arc_step(int* const* s, int c, int key, int now, double& p,
-                         Block& blk) {
-  const int len[4] = {c, c, c, 2 * c + 1};
-  long long v[16];
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    v[4 * l] = kNone;
-    v[4 * l + 1] = kNone;
-    v[4 * l + 2] = 0;
-    v[4 * l + 3] = kNone;
-  }
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-    arc_scan(s[2 * l], s[2 * l + 1], len[l], key, v + 4 * l);
-  block_reduce(v, (1u << 2) | (1u << 6) | (1u << 10) | (1u << 14), blk.red);
-  blk.visits += 2LL * (5 * c + 1);
-  ArcList lst[4];
-#pragma unroll
-  for (int l = 0; l < 4; ++l)
-    lst[l] = {s[2 * l], s[2 * l + 1], v[4 * l], index_of(v[4 * l + 1]),
-              static_cast<int>(v[4 * l + 2]), v[4 * l + 3]};
-  ArcList &t1 = lst[0], &t2 = lst[1], &b1 = lst[2], &b2 = lst[3];
-  const bool in_t1 = t1.match != kNone, in_t2 = t2.match != kNone;
-  const bool in_b1 = b1.match != kNone, in_b2 = b2.match != kNone;
-
-  if (in_t1) {                        // Case I via T1: promote to T2's MRU
-    if (threadIdx.x == 0) t1.k[t1.match] = kEmpty;
-    arc_push(t2, key, now);
-  } else if (in_t2) {                 // Case I via T2: touch
-    if (threadIdx.x == 0) t2.t[t2.match] = now;
-  } else if (in_b1 || in_b2) {        // Cases II / III: a ghost hit
-    const double n_b1 = b1.n, n_b2 = b2.n;
-    if (in_b1) {
-      const double delta = fmax(1.0, n_b2 / fmax(n_b1, 1.0));
-      p = fmin(static_cast<double>(c), p + delta);
-    } else {
-      const double delta = fmax(1.0, n_b1 / fmax(n_b2, 1.0));
-      p = fmax(0.0, p - delta);
-    }
-    arc_replace(t1, t2, b1, b2, p, !in_b1, now);
-    if (threadIdx.x == 0) {
-      if (in_b1) b1.k[b1.match] = kEmpty;
-      else b2.k[b2.match] = kEmpty;
-    }
-    arc_push(t2, key, now);
-  } else {                            // Case IV: a miss
-    const int l1 = t1.n + b1.n;
-    const int total = l1 + t2.n + b2.n;
-    const bool case_a = l1 == c;
-    const bool drop_b1 = case_a && t1.n < c;
-    const bool drop_t1 = case_a && t1.n >= c;
-    const bool case_b = !case_a && total >= c;
-    const bool drop_b2 = case_b && total == 2 * c;
-    // the arg-mins were taken before any pop, as the reference's are
-    if (drop_b1) arc_pop(b1, b1.lru);
-    if (drop_t1) arc_pop(t1, t1.lru);
-    if (drop_b2) arc_pop(b2, b2.lru);
-    // (REPLACE never runs after T1 lost a slot: drop_t1 excludes both)
-    if (drop_b1 || case_b) arc_replace(t1, t2, b1, b2, p, false, now);
-    arc_push(t1, key, now);
-  }
-  return in_t1 || in_t2;
-}
-
-// ------------------------------------------------------------------------ //
-// LIRS: status[K], s_t[K], q_t[K], res[K]; n_lir, n_res in registers        //
-// ------------------------------------------------------------------------ //
-
-struct Lirs {
-  int *status, *s_t, *q_t, *res;
-  int n_keys, capacity, llirs;
-  int n_lir, n_res;
-};
-
-// min over the LIR keys of their stack stamp (value) and the lowest such
-// key (index); kI32Max / 0 when there is none
-__device__ long long lirs_bottom(const Lirs& L, Block& blk) {
-  long long v[1] = {kNone};
-  for (int i = threadIdx.x; i < L.n_keys; i += kThreads)
-    v[0] = min64(v[0], pack(L.status[i] == kLIR ? L.s_t[i] : kI32Max, i));
-  block_reduce(v, 0u, blk.red);
-  blk.visits += 2LL * L.n_keys;
-  return v[0];
-}
-
-// whether the key is in the stack, given lirs_bottom's result
-__device__ __forceinline__ bool lirs_in_stack(const Lirs& L, int key,
-                                              long long bottom) {
-  const int st = L.s_t[key];
-  return st >= 0 && st >= value_of(bottom);
-}
-
-// bottom LIR -> HIR (``bottom`` from lirs_bottom): leaves the stack;
-// enters Q if resident
-__device__ void lirs_demote_bottom(Lirs& L, int tick, long long bottom) {
-  if (L.n_lir <= 0) return;
-  const int b = index_of(bottom);
-  if (threadIdx.x == 0) {
-    const bool res_b = L.res[b] != 0;
-    L.s_t[b] = -1;
-    L.status[b] = kHIR;
-    if (res_b) L.q_t[b] = tick;
-  }
-  L.n_lir -= 1;
-  __syncthreads();
-}
-
-__device__ void lirs_evict_resident_hir(Lirs& L, Block& blk) {
-  long long v[2] = {kNone, 0};
-  for (int i = threadIdx.x; i < L.n_keys; i += kThreads) {
-    const int q = L.q_t[i];
-    v[0] = min64(v[0], pack(q >= 0 ? q : kI32Max, i));
-    v[1] += q >= 0;
-  }
-  block_reduce(v, 2u, blk.red);
-  blk.visits += L.n_keys;
-  if (v[1] == 0) return;
-  const int victim = index_of(v[0]);
-  if (threadIdx.x == 0) {
-    L.q_t[victim] = -1;
-    L.res[victim] = 0;
-  }
-  L.n_res -= 1;
-  __syncthreads();
-}
-
-__device__ bool lirs_step(Lirs& L, int key, int now, Block& blk) {
-  const bool hit = L.res[key] != 0;
-  if (L.status[key] == kLIR) {        // LIR hit: to the stack's top
-    if (threadIdx.x == 0) L.s_t[key] = now + 1;
-    return hit;
-  }
-  bool ins, cold = false;
-  long long bottom;
-  if (hit) {                          // resident HIR
-    bottom = lirs_bottom(L, blk);
-    ins = lirs_in_stack(L, key, bottom);
-  } else {                            // miss: make room first
-    if (L.n_res >= L.capacity) {
-      lirs_evict_resident_hir(L, blk);
-      if (L.n_res >= L.capacity) {   // all-LIR corner
-        lirs_demote_bottom(L, now, lirs_bottom(L, blk));
-        lirs_evict_resident_hir(L, blk);
-      }
-    }
-    if (threadIdx.x == 0) L.res[key] = 1;
-    L.n_res += 1;
-    __syncthreads();
-    bottom = lirs_bottom(L, blk);     // after the demotes moved it
-    ins = lirs_in_stack(L, key, bottom);
-    cold = L.n_lir < L.llirs && !ins;
-  }
-  const bool to_lir = cold || ins;
-  if (threadIdx.x == 0) {
-    L.s_t[key] = now + 1;
-    L.status[key] = to_lir ? kLIR : kHIR;
-    if (!to_lir) L.q_t[key] = now + 2;      // HIR: to Q's tail
-    else if (hit) L.q_t[key] = -1;          // promoted: leaves Q
-  }
-  if (to_lir) L.n_lir += 1;
-  // ``ins`` means a LIR key lies at or below the key's old stamp, and the
-  // key joins the LIR set with the newest stamp: the bottom is unchanged
-  if (ins && L.n_lir > L.llirs) lirs_demote_bottom(L, now + 2, bottom);
-  return hit;
-}
-
-// ------------------------------------------------------------------------ //
-// the trace loop                                                            //
-// ------------------------------------------------------------------------ //
-
-template <int P>
+template <int P, bool kS, bool kK>
 __global__ void __launch_bounds__(kThreads)
-    engine_baseline_kernel(const int* __restrict__ acc, long long length,
-                           const int* __restrict__ cums_in, int n_levels,
-                           int total, int s1, int s2, int s3, int n_keys,
-                           int* state, long long state_words,
-                           const Offsets offsets, double* p_out,
-                           int* counters, long long* visits_out) {
-  __shared__ long long red[kMaxFields * kWarps];
-  const long long b = blockIdx.x;
-  const int* a = acc + b * length;
-  int* st = state + b * state_words;
-  int cums[kMaxLevels];
-  for (int l = 0; l < n_levels; ++l) cums[l] = cums_in[l];
+    engine_baseline_kernel(const Params q, const Arena ar) {
+  // the kernel's own scalars first (kMeta bytes), then the arena
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sums = reinterpret_cast<int*>(smem);
+  int* bound = sums + kMaxLevels + 3;
+  unsigned char* tiers = smem + 4 * (2 * kMaxLevels + 3);
+  unsigned char* hits = tiers + kChunk;
+  using SL = Link<kS>;
+  using KL = Link<kK>;
+  const int tid = threadIdx.x;
+  const long long blk = blockIdx.x;
+  int* region = q.state + blk * q.state_words;
+  const int* a = q.acc + blk * q.length;
+  const int n = q.total, n_keys = q.n_keys;
+  const int x = outputs(P);           // the first of the kernel's arrays
 
-  int* arr[kMaxArrays];
-  for (int j = 0; j < kMaxArrays; ++j) arr[j] = st + offsets.at[j];
-  int* shk = arr[0];
-  int* sht = arr[1];
-  int* const* pol = arr + 2;          // the policy's arrays
-  fill(shk, total, kEmpty);
-  fill_stamps(sht, total);
-  Lirs L{};
-  if (P == kLRU || P == kFIFO) {
-    fill(pol[0], total, kEmpty);
-    fill_stamps(pol[1], total);
-  } else if (P == kTwoQ) {
-    const int sz[3] = {s1, s2, s3};
-    for (int l = 0; l < 3; ++l) {
-      fill(pol[2 * l], sz[l], kEmpty);
-      fill_stamps(pol[2 * l + 1], sz[l]);
+  // the shadow: every slot in stamp order, slot 0 the oldest
+  Shadow<SL> sh;
+  sh.keys = place<int, kS>(ar, 0, region, smem);
+  sh.t = region + ar.at[1];
+  init_list<kS>(sh.ch, ar, x, n, region, smem);
+  sh.tier = place<int, kS>(ar, x + 1, region, smem);
+  sh.slot = place<int, kK>(ar, x + 2, region, smem);
+  sh.n_levels = q.n_levels;
+  fill(sh.keys, n, kEmpty);
+  fill_stamps(sh.t, n);
+  fill(sh.slot, n_keys, kNil);
+  for (int i = tid; i < n; i += kThreads) {
+    int tr = 0;
+    for (int l = 0; l < q.n_levels; ++l) tr += q.cums[l] < n - i;
+    sh.tier[i] = tr;
+  }
+  if (tid < q.n_levels) bound[tid] = n - q.cums[tid];
+  sh.bound = bound;
+  if (tid < kMaxLevels + 3) sums[tid] = 0;
+
+  int* pol[8];
+  for (int j = 0; j < 8 && 2 + j < x; ++j) pol[j] = region + ar.at[2 + j];
+  LruPolicy<SL> lru;
+  TwoQPolicy<SL> twoq;
+  ArcPolicy<SL> arc;
+  LirsPolicy<KL> lirs;
+  if constexpr (P == kLRU) {
+    lru.keys = place<int, kS>(ar, 2, region, smem);
+    lru.t = pol[1];
+    init_list<kS>(lru.ch, ar, x + 3, n, region, smem);
+    lru.where = place<int, kK>(ar, x + 4, region, smem);
+    lru.restamp = q.policy == kLRU;   // FIFO runs this instance too
+    fill(lru.keys, n, kEmpty);
+    fill_stamps(lru.t, n);
+    fill(lru.where, n_keys, kNil);
+  } else if constexpr (P == kTwoQ) {
+    const int sz[3] = {q.s1, q.s2, q.s3};
+    for (int i = 0; i < 3; ++i) {
+      twoq.k[i] = place<int, kS>(ar, 2 + 2 * i, region, smem);
+      twoq.t[i] = pol[2 * i + 1];
+      fill(twoq.k[i], sz[i], kEmpty);
+      fill_stamps(twoq.t[i], sz[i]);
     }
-  } else if (P == kARC) {
-    for (int l = 0; l < 4; ++l) {     // keys EMPTY, stamps 0
-      const int n = l < 3 ? total : 2 * total + 1;
-      fill(pol[2 * l], n, kEmpty);
-      fill(pol[2 * l + 1], n, 0);
+    init_list<kS>(twoq.a1, ar, x + 3, q.s1, region, smem);
+    init_list<kS>(twoq.ao, ar, x + 4, q.s2, region, smem);
+    init_list<kS>(twoq.am, ar, x + 5, q.s3, region, smem);
+    twoq.freed.lo = place<unsigned, kS>(ar, x + 6, region, smem);
+    twoq.freed.hi = place<unsigned, kS>(ar, x + 7, region, smem);
+    twoq.freed.init(q.s2, false, tid, kThreads);
+    twoq.where = place<int, kK>(ar, x + 8, region, smem);
+    fill(twoq.where, n_keys, kNil);
+  } else if constexpr (P == kARC) {
+    for (int i = 0; i < 4; ++i) {     // keys EMPTY, stamps 0, all free
+      ArcList<SL>& li = arc.l[i];
+      const int len = i < 3 ? n : 2 * n + 1;
+      li.k = place<int, kS>(ar, 2 + 2 * i, region, smem);
+      li.t = pol[2 * i + 1];
+      li.ch.node = place<Node<SL>, kS>(ar, x + 3 + 3 * i, region, smem);
+      li.fs.lo = place<unsigned, kS>(ar, x + 4 + 3 * i, region, smem);
+      li.fs.hi = place<unsigned, kS>(ar, x + 5 + 3 * i, region, smem);
+      li.ch.init_empty();
+      li.fs.init(len, true, tid, kThreads);
+      li.n = 0;
+      fill(li.k, len, kEmpty);
+      fill(li.t, len, 0);
     }
+    arc.where = place<int, kK>(ar, x + 15, region, smem);
+    arc.c = n;
+    arc.p = 0.0;
+    fill(arc.where, n_keys, kNil);
   } else {
-    L = {pol[0], pol[1], pol[2], pol[3], n_keys, s1, s2, 0, 0};
-    fill(L.status, n_keys, kNoStatus);
-    fill(L.s_t, n_keys, -1);
-    fill(L.q_t, n_keys, -1);
-    fill(L.res, n_keys, 0);
+    lirs.status = place<int, kK>(ar, 2, region, smem);
+    lirs.s_t = place<int, kK>(ar, 3, region, smem);
+    lirs.q_t = pol[2];
+    lirs.res = place<int, kK>(ar, 5, region, smem);
+    lirs.q.node = place<Node<KL>, kK>(ar, x + 3, region, smem);
+    lirs.q.init_empty();
+    lirs.acc = a;
+    lirs.bp = lirs.walked = 0;
+    lirs.capacity = q.s1;
+    lirs.llirs = q.s2;
+    lirs.n_lir = lirs.n_res = 0;
+    fill(lirs.status, n_keys, kNoStatus);
+    fill(lirs.s_t, n_keys, -1);
+    fill(lirs.q_t, n_keys, -1);
+    fill(lirs.res, n_keys, 0);
   }
   __syncthreads();
 
-  Block blk{red, 0};
-  int hits[kMaxLevels + 1];
-  for (int l = 0; l <= n_levels; ++l) hits[l] = 0;
+  int cnt[kMaxLevels + 1];
+#pragma unroll
+  for (int l = 0; l <= kMaxLevels; ++l) cnt[l] = 0;
   int miss = 0, demand = 0;
-  double p = 0.0;
-  for (long long step = 0; step < length; ++step) {
-    const int key = a[step];
-    if (key < 0) continue;            // a padded step changes nothing
-    const int now = static_cast<int>(step * kPolicyTicks);
-
-    // tier := the key's shadow rank before the touch
-    long long v[2] = {kNone, kNone};
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-      if (shk[i] == key) v[0] = min64(v[0], i);
-      v[1] = min64(v[1], pack(sht[i], i));
-    }
-    block_reduce(v, 0u, red);
-    blk.visits += 2LL * total;
-    const bool in_shadow = v[0] != kNone;
-    int tier = n_levels;
-    if (in_shadow) {
-      const int t_key = sht[v[0]];
-      long long r[1] = {0};
-      for (int i = threadIdx.x; i < total; i += kThreads)
-        r[0] += shk[i] != kEmpty && sht[i] > t_key;
-      block_reduce(r, 1u, red);
-      blk.visits += 2LL * total;
-      const long long rank = 1 + r[0];
-      tier = 0;
-      for (int l = 0; l < n_levels; ++l) tier += rank > cums[l];
-    }
-
-    // hit := the policy's residency before its update; then the update
-    bool hit;
-    if (P == kLRU || P == kFIFO)
-      hit = lru_step(pol[0], pol[1], total, key, now, P == kLRU, blk);
-    else if (P == kTwoQ)
-      hit = twoq_step(pol, s1, s2, s3, key, now, blk);
-    else if (P == kARC)
-      hit = arc_step(pol, total, key, now, p, blk);
-    else
-      hit = lirs_step(L, key, now, blk);
-
-    // the shadow touch: an LRU update over the largest shadow
-    if (threadIdx.x == 0) {
-      if (in_shadow) {
-        sht[v[0]] = now;
-      } else {
-        shk[index_of(v[1])] = key;
-        sht[index_of(v[1])] = now;
+  for (long long c0 = 0; c0 < q.length; c0 += kChunk) {
+    const int len = static_cast<int>(
+        q.length - c0 < kChunk ? q.length - c0 : kChunk);
+    if (tid == kShadowThread || tid == kPolicyThread) {
+      int key = a[c0];
+      for (int i = 0; i < len; ++i) {
+        const int next = i + 1 < len ? a[c0 + i + 1] : kEmpty;
+        const int now = static_cast<int>((c0 + i) * kPolicyTicks);
+        if (tid == kShadowThread) {
+          tiers[i] = key < 0 ? kPad
+                             : static_cast<unsigned char>(sh.access(key, now));
+        } else {
+          bool hit = false;
+          if (key >= 0) {
+            if constexpr (P == kLRU) hit = lru.access(key, now);
+            else if constexpr (P == kTwoQ) hit = twoq.access(key, now);
+            else if constexpr (P == kARC) hit = arc.access(key, now);
+            else hit = lirs.access(key, now);
+          }
+          hits[i] = hit;
+        }
+        key = next;
       }
     }
     __syncthreads();
-    if (hit) hits[tier] += 1;
-    else miss += 1;
-    demand += 1;
+    for (int i = tid; i < len; i += kThreads) {
+      const int tr = tiers[i];
+      if (tr == kPad) continue;
+      demand += 1;
+      if (hits[i]) {
+#pragma unroll
+        for (int l = 0; l <= kMaxLevels; ++l) cnt[l] += tr == l;
+      } else {
+        miss += 1;
+      }
+    }
+    __syncthreads();
   }
 
-  if (threadIdx.x == 0) {
-    int* out = counters + b * (n_levels + 3);
-    for (int l = 0; l <= n_levels; ++l) out[l] = hits[l];
-    out[n_levels + 1] = miss;
-    out[n_levels + 2] = demand;
-    visits_out[b] = blk.visits;
-    p_out[b] = p;
-    if (P == kLIRS) {
-      pol[4][0] = L.n_lir;
-      pol[5][0] = L.n_res;
+#pragma unroll
+  for (int l = 0; l <= kMaxLevels; ++l)
+    if (cnt[l]) atomicAdd(&sums[l], cnt[l]);
+  atomicAdd(&sums[kMaxLevels + 1], miss);
+  atomicAdd(&sums[kMaxLevels + 2], demand);
+  if (tid == kPolicyThread) {
+    q.p_out[blk] = 0.0;
+    q.visits[blk] = 0;
+    if constexpr (P == kARC) q.p_out[blk] = arc.p;
+    if constexpr (P == kLIRS) {
+      q.visits[blk] = lirs.walked;
+      pol[4][0] = lirs.n_lir;
+      pol[5][0] = lirs.n_res;
     }
   }
+  __syncthreads();
+  if (tid == 0) {
+    int* out = q.counters + blk * (q.n_levels + 3);
+    for (int l = 0; l <= q.n_levels; ++l) out[l] = sums[l];
+    out[q.n_levels + 1] = sums[kMaxLevels + 1];
+    out[q.n_levels + 2] = sums[kMaxLevels + 2];
+  }
+  copy_out(ar, region, smem);
+}
+
+template <int P, bool kS, bool kK>
+cudaError_t launch_mode(const Params& q, const Arena& ar, long long n,
+                        int bytes, cudaStream_t stream) {
+  auto kern = engine_baseline_kernel<P, kS, kK>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  kern<<<static_cast<unsigned>(n), kThreads, bytes, stream>>>(q, ar);
+  return cudaGetLastError();
 }
 
 template <int P>
-void launch(const int* acc, long long n, long long length, const int* cums,
-            int n_levels, int total, int s1, int s2, int s3, int n_keys,
-            int* state, long long state_words, const Offsets& offsets,
-            double* p_out, int* counters, long long* visits,
-            cudaStream_t stream) {
-  engine_baseline_kernel<P><<<static_cast<unsigned>(n), kThreads, 0,
-                              stream>>>(
-      acc, length, cums, n_levels, total, s1, s2, s3, n_keys, state,
-      state_words, offsets, p_out, counters, visits);
+cudaError_t launch(const Params& q, const Arena& ar, long long n, int mode,
+                   int bytes, cudaStream_t stream) {
+  if (mode == 0) return launch_mode<P, true, true>(q, ar, n, bytes, stream);
+  if (mode == 1) return launch_mode<P, true, false>(q, ar, n, bytes, stream);
+  return launch_mode<P, false, false>(q, ar, n, bytes, stream);
+}
+
+// the dynamic shared bytes a block may take beside the kernel's own
+long long shared_limit() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr{};
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, engine_baseline_kernel<kARC, true, true>) !=
+          cudaSuccess)
+    return -1;
+  return static_cast<long long>(optin) -
+         static_cast<long long>(attr.sharedSizeBytes);
 }
 
 }  // namespace
@@ -531,46 +711,39 @@ extern "C" int pfcs_engine_baseline(const void* acc, long long n,
                                     int s1, int s2, int s3, int n_keys,
                                     void* state, long long state_words,
                                     const long long* offsets, int n_offsets,
+                                    int* placement,
                                     void* p_out, void* counters, void* visits,
                                     void* stream) {
   if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > kMaxLevels || policy < 0 || policy > 4 ||
-      n_offsets != kArrays[policy])
+      n_offsets != static_cast<int>(std::strlen(kKinds[policy])))
     return static_cast<int>(cudaErrorInvalidValue);
-  Offsets off{};
-  for (int j = 0; j < n_offsets; ++j) off.at[j] = offsets[j];
+  const long long limit = shared_limit();
+  if (limit < 0) return static_cast<int>(cudaGetLastError());
+  Arena ar{};
+  int mode = 2;
+  const int bytes = plan_arena(kKinds[policy], offsets, n_offsets,
+                               state_words, outputs(policy), limit, kMeta, &ar,
+                               &mode);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  placement[0] = mode;
+  placement[1] = bytes;
+  const Params q{static_cast<const int*>(acc), length,
+                 static_cast<const int*>(cums), policy, n_levels, total, s1,
+                 s2, s3,
+                 n_keys, static_cast<int*>(state), state_words,
+                 static_cast<double*>(p_out), static_cast<int*>(counters),
+                 static_cast<long long*>(visits)};
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const int*>(acc);
-  auto c = static_cast<const int*>(cums);
-  auto st = static_cast<int*>(state);
-  auto p = static_cast<double*>(p_out);
-  auto out = static_cast<int*>(counters);
-  auto vis = static_cast<long long*>(visits);
+  cudaError_t rc;
   switch (policy) {
     case kLRU:
-      launch<kLRU>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                   state_words, off, p, out, vis, s);
-      break;
-    case kFIFO:
-      launch<kFIFO>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, off, p, out, vis, s);
-      break;
-    case kTwoQ:
-      launch<kTwoQ>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, off, p, out, vis, s);
-      break;
-    case kARC:
-      launch<kARC>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                   state_words, off, p, out, vis, s);
-      break;
-    case kLIRS:
-      launch<kLIRS>(a, n, length, c, n_levels, total, s1, s2, s3, n_keys, st,
-                    state_words, off, p, out, vis, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kFIFO: rc = launch<kLRU>(q, ar, n, mode, bytes, s); break;
+    case kTwoQ: rc = launch<kTwoQ>(q, ar, n, mode, bytes, s); break;
+    case kARC: rc = launch<kARC>(q, ar, n, mode, bytes, s); break;
+    default: rc = launch<kLIRS>(q, ar, n, mode, bytes, s); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rc);
 }
 
 extern "C" const char* pfcs_engine_baseline_error(int code) {

@@ -7,254 +7,363 @@
 // PyTorch version is repro_torch/core/engine/pfcs_vec.py's step run as a
 // Python loop over the trace (repro_torch/kernels/engine.py).
 //
-// Layout.  One thread block of kThreads threads per trace of the batch, one
-// launch per simulate_batch call.  The block walks its trace step by step.
-// Each level of capacity C is four (C+1)-slot int32 arrays (keys, stamps,
-// the prefetched flag, the degree snapshot), then comes the (K,) residency
-// array ``where`` (the key's level or -1); one region per trace,
-// initialised here, each array at the word the wrapper gives in
-// ``offsets`` (from kernels/engine.py::pfcs_layout).  The
-// (K, budget) target and truth tables and the (K,) degree table are read
-// from global memory.  A step: the hit's slot (a block fold over its
-// level), the demand insert and demote cascade (per level, a fold for the
-// first free slot and the count, then, when the level is over capacity,
-// the eviction window: min(victim_window, C+1) chained arg-mins over the
-// stamps, each a fold over the occupied slots stamped after the previous
-// pick, exact because live stamps are unique), then the prefetch burst
-// into the last level, each target's residency read from ``where`` as the
-// earlier inserts and evictions of the same access left it.  Thread 0
-// makes the slot writes; every decision is taken by the whole block from
-// the folds' results.
+// What bounds it.  As engine_baseline.cu: a serial chain of steps, so a
+// step's latency.  One block per trace; thread 0 walks the trace and the
+// other threads only initialise the state and copy it out, so no barrier
+// falls inside a step.  The state is in dynamic shared memory where it
+// fits (engine_list.cuh's modes: mode 1 leaves ``where``, the key -> slot
+// map and the degree table in global memory); the stamps, written and
+// never read, stay in the global region.  No level is folded:
 //
-// What bounds it.  As engine_baseline.cu: a serial chain of steps, each
-// scan two block barriers and a shuffle tree, parallel only across traces
-// and within a scan; the bytes / slot-words bound the smoke run states
-// (the words the algorithm must read for this trace, counted by
-// chip_smoke.py apart from this kernel) is loose.  ``visits`` counts the
-// slot words this kernel's scans read, a diagnostic: the eviction window's
-// w chained folds read the level w times where one selection would do.
+//   * a hit finds its slot in a per-key map beside ``where``;
+//   * an insert takes the level's lowest free slot from a two-level bitmap
+//     (the reference's first_empty; a level holds at most C of its C + 1
+//     slots before an insert, so one is always free) and keeps the count
+//     as a scalar; when the level holds C, its one free slot is the one
+//     the last eviction or removal freed, known without the bitmap;
+//   * each level keeps its live slots in stamp order (Chain).  That is
+//     exact because every stamp a step writes into a level is the newest
+//     there: the demand insert at level l writes base + l, a prefetch
+//     base + levels + j (j rising), an L0 touch base (a step that touches
+//     L0 inserts nothing there), and base grows by levels + budget a step.
+//     So the eviction window, the min(victim_window, C + 1) least recent
+//     slots, is the chain's first w nodes, walked once; the victim is the
+//     first of the lowest degree among them (ties to the older entry).
+//
+// tests/test_torch_engine_model.py runs the same structures in Python
+// against the plain step and the reference's oracle.
 //
 // C entry: pfcs_engine_pfcs(acc, n, length, caps, n_levels, n_keys,
 //   budget, bcols, window, always, targets, truth, degree, state,
-//   state_words, offsets, n_offsets, counters, visits, stream) ->
-//   cudaGetLastError().  offsets is a host array of the 4 * n_levels + 1
-//   words at which each level's keys, t, pf, deg and then ``where`` start
-//   in a trace's state_words region.  acc is
-//   (n, length) int32 keys, -1 a padded step; targets (n, K, bcols) int32,
-//   -1 padded; truth (n, K, bcols) uint8; degree (n, K) int32; budget the
-//   prefetch inserts per access (0 disables prefetch); counters
-//   (n, n_levels + 5) int32: hits per level, misses, demand accesses,
-//   prefetches issued, used and true.
+//   state_words, offsets, n_offsets, placement, counters,
+//   visits, stream) -> cudaGetLastError().  offsets is a host array of the
+//   words at which each array starts in a trace's state_words region:
+//   pfcs_layout's (each level's keys, t, pf, deg, then ``where``), then the
+//   kernel's own (kernels/engine.py::pfcs_arena: each level's links and
+//   bitmap, then the key -> slot map and the degree table's copy).  acc is
+//   (n, length) int32 keys, -1 a padded step; caps (on the card) the
+//   level capacities; targets (n, K, bcols) int32, -1 padded; truth (n, K,
+//   bcols) uint8; degree (n, K) int32; budget the prefetch inserts per
+//   access (0 disables prefetch); placement as
+//   engine_baseline.cu's; counters (n, n_levels + 5) int32: hits per
+//   level, misses, demand accesses, prefetches issued, used and true;
+//   visits (n,) int64: the slots the eviction windows walked.
 
 #include <cuda_runtime.h>
 
-#include "engine_scan.cuh"
+#include <type_traits>
+
+#include "engine_list.cuh"
 
 using namespace pfcs_engine;
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxArrays = 4 * kMaxLevels + 1;
+constexpr int kThreads = 128;
 
-// where each array starts in a trace's state region, in words
-struct Offsets {
-  long long at[kMaxArrays];
-};
+template <bool kShared>
+using Link = typename std::conditional<kShared, unsigned short, int>::type;
 
-struct Level {
-  int *keys, *t, *pf, *deg;
-  int cap;     // C; the level has C + 1 slots
-};
-
-struct Block {
-  long long* red;
-  long long visits;
+struct Params {
+  const int* acc;
+  long long length;
+  const int* caps;
+  int n_levels, n_keys, budget, bcols, window, always;
+  const int* targets;
+  const unsigned char* truth;
+  const int* degree;
+  int* state;
+  long long state_words;
+  int* counters;
+  long long* visits;
 };
 
 struct Victim {
   int key, pf, deg;
 };
 
-// Relationship-aware replacement over a full level: among the w
-// least-recent entries evict the lowest degree, ties to the older (strict <
-// from the oldest).
-__device__ Victim evict(const Level& lv, int window, Block& blk) {
-  const int n = lv.cap + 1;
-  const int w = window < n ? window : n;
-  int best = 0, best_deg = kI32Max;
-  int prev = -kI32Max - 1;            // below every stamp
-  for (int r = 0; r < w; ++r) {
-    long long v[1] = {kNone};
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int t = lv.t[i];
-      const bool live = lv.keys[i] != kEmpty && t > prev;
-      v[0] = min64(v[0], pack(live ? t : kI32Max, i));
-    }
-    block_reduce(v, 0u, blk.red);
-    blk.visits += 2LL * n;
-    const int i = index_of(v[0]);
-    prev = value_of(v[0]);
-    const int d = lv.deg[i];
-    if (d < best_deg) {
-      best = i;
-      best_deg = d;
-    }
-  }
-  const Victim out{lv.keys[best], lv.pf[best], lv.deg[best]};
-  __syncthreads();                    // every thread has read the victim
-  if (threadIdx.x == 0) lv.keys[best] = kEmpty;
-  __syncthreads();
-  return out;
-}
+// The levels' slots are numbered across levels: level l's slot i is slot
+// base[l] + i of the arrays below, so one pointer serves every level and
+// the per-level scalars (in shared memory) are the only thing a level adds.
+template <typename L>
+struct Pfcs {
+  int *keys, *pf, *deg;     // every level's slots
+  L *nxt, *prv;             // each level's live slots in stamp order
+  unsigned *lo, *hi;        // each level's free-slot bitmap (FreeSet)
+  int* where;               // key -> level, -1
+  int* slot;                // key -> slot (numbered across levels)
+  const int* dg;            // the degree table
+  int* region;
+  // per level, in shared memory; ``only``: the one free slot when the
+  // level holds C of its C + 1 (as it does after each eviction), kNil
+  // when that is not known, so that an insert then skips the bitmap
+  int *base, *cap, *head, *tail, *n, *only, *lo_at, *hi_at, *n_hi;
+  long long* t_at;          // where each level's stamps start in the region
+  int window;
+  long long walked;
 
-// _add at the level's first free slot (slot 0 when none), the key's
-// ``where`` set to the level; returns whether the level is over capacity.
-__device__ bool add(const Level& lv, int* where, int level, int key,
-                    int tick, int pf, int deg, Block& blk) {
-  const int n = lv.cap + 1;
-  long long v[2] = {kNone, 0};
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const bool occ = lv.keys[i] != kEmpty;
-    if (!occ) v[0] = min64(v[0], i);
-    v[1] += occ;
-  }
-  block_reduce(v, 2u, blk.red);
-  blk.visits += n;
-  const int e = found_or(v[0], 0);
-  if (threadIdx.x == 0) {
-    lv.keys[e] = key;
-    lv.t[e] = tick;
-    lv.pf[e] = pf;
-    lv.deg[e] = deg;
-    where[key] = level;
-  }
-  __syncthreads();
-  return v[1] + (v[0] != kNone ? 1 : 0) > lv.cap;
-}
+  using C = Chain<L>;
 
+  __device__ __forceinline__ void append(int l, int g) {
+    const int tl = tail[l];
+    prv[g] = C::to(tl);
+    nxt[g] = C::to(kNil);
+    if (tl == kNil) head[l] = g;
+    else nxt[tl] = C::to(g);
+    tail[l] = g;
+  }
+
+  __device__ __forceinline__ void unlink(int l, int g) {
+    const int p = C::at(prv[g]), nx = C::at(nxt[g]);
+    if (p == kNil) head[l] = nx;
+    else nxt[p] = C::to(nx);
+    if (nx == kNil) tail[l] = p;
+    else prv[nx] = C::to(p);
+  }
+
+  __device__ __forceinline__ FreeSet free_set(int l) const {
+    return FreeSet{lo + lo_at[l], hi + hi_at[l], n_hi[l]};
+  }
+
+  __device__ void remove(int l, int g) {
+    keys[g] = kEmpty;
+    unlink(l, g);
+    FreeSet fs = free_set(l);
+    fs.add(g - base[l]);
+    n[l] -= 1;
+    only[l] = n[l] == cap[l] ? g - base[l] : kNil;
+  }
+
+  __device__ void touch(int g, int tick) {   // an L0 hit: to the newest end
+    region[t_at[0] + g - base[0]] = tick;
+    pf[g] = 0;
+    if (tail[0] != g) {
+      unlink(0, g);
+      append(0, g);
+    }
+  }
+
+  // _add at the level's first free slot; whether it is over capacity
+  __device__ bool add(int l, int key, int tick, int flag, int d) {
+    FreeSet fs = free_set(l);
+    int i = n[l] == cap[l] ? only[l] : kNil;
+    if (i == kNil) i = fs.first();
+    if (i == kNil) i = 0;
+    fs.remove(i);
+    only[l] = kNil;
+    const int g = base[l] + i;
+    keys[g] = key;
+    region[t_at[l] + i] = tick;
+    pf[g] = flag;
+    deg[g] = d;
+    append(l, g);
+    where[key] = l;
+    slot[key] = g;
+    n[l] += 1;
+    return n[l] > cap[l];
+  }
+
+  // among the w least recent slots the first of the lowest degree
+  __device__ Victim evict(int l) {
+    const int c1 = cap[l] + 1;
+    const int w = window < c1 ? window : c1;
+    int g = head[l], best = g, best_deg = kI32Max;
+    for (int r = 0; r < w; ++r) {
+      const int d = deg[g];
+      if (d < best_deg) {
+        best = g;
+        best_deg = d;
+      }
+      g = C::at(nxt[g]);
+    }
+    walked += w;
+    const Victim out{keys[best], pf[best], deg[best]};
+    remove(l, best);
+    return out;
+  }
+};
+
+template <bool kS, bool kK>
 __global__ void __launch_bounds__(kThreads)
-    engine_pfcs_kernel(const int* __restrict__ acc, long long length,
-                       const int* __restrict__ caps_in, int n_levels,
-                       int n_keys, int budget, int bcols, int window,
-                       int always, const int* __restrict__ targets,
-                       const unsigned char* __restrict__ truth,
-                       const int* __restrict__ degree, int* state,
-                       long long state_words, const Offsets offsets,
-                       int* counters, long long* visits_out) {
-  __shared__ long long red[kMaxFields * kWarps];
-  const long long b = blockIdx.x;
-  const int* a = acc + b * length;
-  int* st = state + b * state_words;
-  const int* tgt_tbl = targets + b * n_keys * bcols;
-  const unsigned char* truth_tbl = truth + b * n_keys * bcols;
-  const int* deg_tbl = degree + b * n_keys;
+    engine_pfcs_kernel(const Params q, const Arena ar) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int base[kMaxLevels], cap[kMaxLevels], head[kMaxLevels],
+      tail[kMaxLevels], cnt[kMaxLevels], only[kMaxLevels], lo_at[kMaxLevels],
+      hi_at[kMaxLevels], n_hi[kMaxLevels];
+  __shared__ long long t_at[kMaxLevels];
+  using SL = Link<kS>;
+  const int tid = threadIdx.x;
+  const long long blk = blockIdx.x;
+  const int L = q.n_levels, K = q.n_keys;
+  int* region = q.state + blk * q.state_words;
+  const int* a = q.acc + blk * q.length;
+  const int* tgt_tbl = q.targets + blk * K * q.bcols;
+  const unsigned char* truth_tbl = q.truth + blk * K * q.bcols;
+  const int* deg_in = q.degree + blk * K;
 
-  Level lv[kMaxLevels];
-  const long long* at = offsets.at;
-  for (int l = 0; l < n_levels; ++l) {
-    const int cap = caps_in[l], n = cap + 1;
-    lv[l] = {st + at[4 * l], st + at[4 * l + 1], st + at[4 * l + 2],
-             st + at[4 * l + 3], cap};
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      lv[l].keys[i] = kEmpty;
-      lv[l].t[i] = i - n;
-      lv[l].pf[i] = 0;
-      lv[l].deg[i] = 0;
+  Pfcs<SL> pc;
+  const int x = 4 * L + 1;            // the first of the kernel's arrays
+  pc.keys = place<int, kS>(ar, x, region, smem);
+  pc.pf = place<int, kS>(ar, x + 1, region, smem);
+  pc.deg = place<int, kS>(ar, x + 2, region, smem);
+  pc.nxt = place<SL, kS>(ar, x + 3, region, smem);
+  pc.prv = place<SL, kS>(ar, x + 4, region, smem);
+  pc.lo = place<unsigned, kS>(ar, x + 5, region, smem);
+  pc.hi = place<unsigned, kS>(ar, x + 6, region, smem);
+  pc.where = place<int, kK>(ar, 4 * L, region, smem);
+  pc.slot = place<int, kK>(ar, x + 7, region, smem);
+  int* deg_copy = place<int, kK>(ar, x + 8, region, smem);
+  pc.region = region;
+  pc.base = base;
+  pc.cap = cap;
+  pc.head = head;
+  pc.tail = tail;
+  pc.n = cnt;
+  pc.only = only;
+  pc.lo_at = lo_at;
+  pc.hi_at = hi_at;
+  pc.n_hi = n_hi;
+  pc.t_at = t_at;
+  pc.window = q.window;
+  pc.walked = 0;
+  int b0 = 0, lo0 = 0, hi0 = 0;
+  for (int l = 0; l < L; ++l) {       // every thread: the level's place
+    const int c1 = q.caps[l] + 1;
+    FreeSet fs{pc.lo + lo0, pc.hi + hi0, 0};
+    fs.init(c1, true, tid, kThreads);
+    int* t = region + ar.at[4 * l + 1];
+    for (int i = tid; i < c1; i += kThreads) {
+      pc.keys[b0 + i] = kEmpty;
+      pc.pf[b0 + i] = 0;
+      pc.deg[b0 + i] = 0;
+      t[i] = i - c1;
     }
+    if (tid == 0) {
+      base[l] = b0;
+      cap[l] = c1 - 1;
+      head[l] = tail[l] = kNil;
+      cnt[l] = 0;
+      only[l] = kNil;
+      lo_at[l] = lo0;
+      hi_at[l] = hi0;
+      n_hi[l] = fs.n_hi;
+      t_at[l] = ar.at[4 * l + 1];
+    }
+    b0 += c1;
+    lo0 += FreeSet::lo_words(c1);
+    hi0 += FreeSet::hi_words(c1);
   }
-  int* where = st + at[4 * n_levels];
-  for (int i = threadIdx.x; i < n_keys; i += kThreads) where[i] = -1;
+  for (int i = tid; i < K; i += kThreads) {
+    pc.where[i] = -1;
+    pc.slot[i] = kNil;
+    if constexpr (kK) deg_copy[i] = deg_in[i];
+  }
+  pc.dg = kK ? deg_copy : deg_in;
   __syncthreads();
 
-  Block blk{red, 0};
-  int hits[kMaxLevels];
-  for (int l = 0; l < n_levels; ++l) hits[l] = 0;
-  int miss = 0, demand = 0, issued = 0, used = 0, n_true = 0;
-  const int micro = n_levels + budget;
-  const int last = n_levels - 1;
-  for (long long step = 0; step < length; ++step) {
-    const int key = a[step];
-    if (key < 0) continue;            // a padded step changes nothing
-    const int base = static_cast<int>(step * micro);
-    const int lvl = where[key];
-    const bool hit = lvl >= 0;
-    bool was_pf = false;
-    if (hit) {                        // the key's slot in its level
-      const Level& h = lv[lvl];
-      const int n = h.cap + 1;
-      long long v[1] = {kNone};
-      for (int i = threadIdx.x; i < n; i += kThreads)
-        if (h.keys[i] == key) v[0] = min64(v[0], i);
-      block_reduce(v, 0u, red);
-      blk.visits += n;
-      if (v[0] != kNone) {
-        const int m = static_cast<int>(v[0]);
-        was_pf = h.pf[m] != 0;
-        __syncthreads();              // every thread has read the flag
-        if (threadIdx.x == 0) {
-          if (lvl == 0) {             // L0 hit: touch in place
-            h.t[m] = base;
-            h.pf[m] = 0;
-          } else {                    // deeper: out, then in at L0 below
-            h.keys[m] = kEmpty;
+  if (tid == 0) {
+    int hits[kMaxLevels];
+    for (int l = 0; l < L; ++l) hits[l] = 0;
+    int miss = 0, demand = 0, issued = 0, used = 0, n_true = 0;
+    const int micro = L + q.budget;
+    const int last = L - 1;
+    int key = q.length > 0 ? a[0] : kEmpty;
+    for (long long step = 0; step < q.length; ++step) {
+      const int k = key;
+      key = step + 1 < q.length ? a[step + 1] : kEmpty;
+      if (k < 0) continue;            // a padded step changes nothing
+      const int base_tick = static_cast<int>(step * micro);
+      const int lvl = pc.where[k];
+      const bool hit = lvl >= 0;
+      bool was_pf = false;
+      if (hit) {
+        const int g = pc.slot[k];
+        was_pf = pc.pf[g] != 0;
+        if (lvl == 0) pc.touch(g, base_tick);   // L0 hit: touch in place
+        else pc.remove(lvl, g);       // deeper: out, then in at L0 below
+      }
+
+      if (!(hit && lvl == 0)) {       // demand insert + demote cascade
+        int pk = k, ppf = 0, pdeg = pc.dg[k];
+        bool pending = true;
+        for (int l = 0; l < L && pending; ++l) {
+          pending = pc.add(l, pk, base_tick + l, ppf, pdeg);
+          if (pending) {
+            const Victim vic = pc.evict(l);
+            pk = vic.key;
+            ppf = vic.pf;
+            pdeg = vic.deg;
           }
         }
-        __syncthreads();
+        if (pending) pc.where[pk] = -1;   // evicted from the last level
       }
-    }
 
-    if (!(hit && lvl == 0)) {         // demand insert + demote cascade
-      int pk = key, ppf = 0, pdeg = deg_tbl[key];
-      bool pending = true;
-      for (int l = 0; l < n_levels && pending; ++l) {
-        pending = add(lv[l], where, l, pk, base + l, ppf, pdeg, blk);
-        if (pending) {
-          const Victim vic = evict(lv[l], window, blk);
-          pk = vic.key;
-          ppf = vic.pf;
-          pdeg = vic.deg;
+      if (q.budget > 0 && (q.always || !hit || was_pf)) {
+        const int* row = tgt_tbl + static_cast<long long>(k) * q.bcols;
+        const unsigned char* tr =
+            truth_tbl + static_cast<long long>(k) * q.bcols;
+        for (int j = 0; j < q.budget; ++j) {
+          const int tg = row[j];
+          if (tg < 0 || pc.where[tg] >= 0) continue;
+          issued += 1;
+          n_true += tr[j] != 0;
+          if (pc.add(last, tg, base_tick + L + j, 1, pc.dg[tg]))
+            pc.where[pc.evict(last).key] = -1;
         }
       }
-      if (pending) {                  // evicted from the last level
-        if (threadIdx.x == 0) where[pk] = -1;
-        __syncthreads();
-      }
+
+      if (hit) hits[lvl] += 1;
+      else miss += 1;
+      demand += 1;
+      used += hit && was_pf;
     }
-
-    if (budget > 0 && (always || !hit || was_pf)) {
-      const int* row = tgt_tbl + static_cast<long long>(key) * bcols;
-      const unsigned char* tr = truth_tbl + static_cast<long long>(key) * bcols;
-      for (int j = 0; j < budget; ++j) {
-        const int tg = row[j];
-        if (tg < 0 || where[tg] >= 0) continue;
-        issued += 1;
-        n_true += tr[j] != 0;
-        if (add(lv[last], where, last, tg, base + n_levels + j, 1,
-                deg_tbl[tg], blk)) {
-          const Victim vic = evict(lv[last], window, blk);
-          if (threadIdx.x == 0) where[vic.key] = -1;
-          __syncthreads();
-        }
-      }
+    int* out = q.counters + blk * (L + 5);
+    for (int l = 0; l < L; ++l) out[l] = hits[l];
+    out[L] = miss;
+    out[L + 1] = demand;
+    out[L + 2] = issued;
+    out[L + 3] = used;
+    out[L + 4] = n_true;
+    q.visits[blk] = pc.walked;
+  }
+  __syncthreads();
+  for (int l = 0; l < L; ++l) {       // the levels out, in their layout
+    const int b = base[l], c1 = cap[l] + 1;
+    int* keys = region + ar.at[4 * l];
+    int* pf = region + ar.at[4 * l + 2];
+    int* deg = region + ar.at[4 * l + 3];
+    for (int i = tid; i < c1; i += kThreads) {
+      keys[i] = pc.keys[b + i];
+      pf[i] = pc.pf[b + i];
+      deg[i] = pc.deg[b + i];
     }
-
-    if (hit) hits[lvl] += 1;
-    else miss += 1;
-    demand += 1;
-    used += hit && was_pf;
   }
+  copy_out(ar, region, smem);
+}
 
-  if (threadIdx.x == 0) {
-    int* out = counters + b * (n_levels + 5);
-    for (int l = 0; l < n_levels; ++l) out[l] = hits[l];
-    out[n_levels] = miss;
-    out[n_levels + 1] = demand;
-    out[n_levels + 2] = issued;
-    out[n_levels + 3] = used;
-    out[n_levels + 4] = n_true;
-    visits_out[b] = blk.visits;
-  }
+template <bool kS, bool kK>
+cudaError_t launch_mode(const Params& q, const Arena& ar, long long n,
+                        int bytes, cudaStream_t stream) {
+  auto kern = engine_pfcs_kernel<kS, kK>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return rc;
+  kern<<<static_cast<unsigned>(n), kThreads, bytes, stream>>>(q, ar);
+  return cudaGetLastError();
+}
+
+long long shared_limit() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr{};
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, engine_pfcs_kernel<true, true>) !=
+          cudaSuccess)
+    return -1;
+  return static_cast<long long>(optin) -
+         static_cast<long long>(attr.sharedSizeBytes);
 }
 
 }  // namespace
@@ -266,22 +375,50 @@ extern "C" int pfcs_engine_pfcs(const void* acc, long long n, long long length,
                                 const void* degree, void* state,
                                 long long state_words,
                                 const long long* offsets, int n_offsets,
+                                int* placement,
                                 void* counters, void* visits, void* stream) {
   if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > kMaxLevels || budget > bcols ||
-      n_offsets != 4 * n_levels + 1)
+      n_offsets != 4 * n_levels + 10)
     return static_cast<int>(cudaErrorInvalidValue);
-  Offsets off{};
-  for (int j = 0; j < n_offsets; ++j) off.at[j] = offsets[j];
-  engine_pfcs_kernel<<<static_cast<unsigned>(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(acc), length, static_cast<const int*>(caps),
-      n_levels, n_keys, budget, bcols, window, always,
-      static_cast<const int*>(targets),
-      static_cast<const unsigned char*>(truth),
-      static_cast<const int*>(degree), static_cast<int*>(state), state_words,
-      off, static_cast<int*>(counters), static_cast<long long*>(visits));
-  return static_cast<int>(cudaGetLastError());
+  // each level's keys, t, pf, deg (written out at the end); where; the
+  // slots' keys, flags, degrees and links and the bitmaps, numbered across
+  // levels; the key -> slot map and the degree table
+  char kinds[4 * kMaxLevels + 11] = {};
+  int at = 0;
+  for (int l = 0; l < 4 * n_levels; ++l) kinds[at++] = 'G';
+  for (const char* k = "KSSSLLbbKK"; *k; ++k) kinds[at++] = *k;
+  const long long limit = shared_limit();
+  if (limit < 0) return static_cast<int>(cudaGetLastError());
+  Arena ar{};
+  int mode = 2;
+  const int bytes = plan_arena(kinds, offsets, n_offsets, state_words,
+                               4 * n_levels + 1, limit, 0, &ar, &mode);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  placement[0] = mode;
+  placement[1] = bytes;
+  const Params q{static_cast<const int*>(acc),
+                 length,
+                 static_cast<const int*>(caps),
+                 n_levels,
+                 n_keys,
+                 budget,
+                 bcols,
+                 window,
+                 always,
+                 static_cast<const int*>(targets),
+                 static_cast<const unsigned char*>(truth),
+                 static_cast<const int*>(degree),
+                 static_cast<int*>(state),
+                 state_words,
+                 static_cast<int*>(counters),
+                 static_cast<long long*>(visits)};
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  if (mode == 0) rc = launch_mode<true, true>(q, ar, n, bytes, s);
+  else if (mode == 1) rc = launch_mode<true, false>(q, ar, n, bytes, s);
+  else rc = launch_mode<false, false>(q, ar, n, bytes, s);
+  return static_cast<int>(rc);
 }
 
 extern "C" const char* pfcs_engine_pfcs_error(int code) {

@@ -14,11 +14,19 @@ step functions of ``repro_torch/core/engine/`` run as a Python loop over
 the trace with the batch as a leading dimension.  A wrapper runs the
 kernel for CUDA tensors and the plain version for CPU tensors; it never
 falls back from one to the other.  Both return the counters and the final
-state in the step functions' layout (the kernel's state is a view of its
-scratch, laid out by ``baseline_layout`` / ``pfcs_layout``, whose offsets
-the wrapper hands to the kernel), so the two can be compared array by
-array; the kernel also returns ``visits``, the slot words its scans read,
-a diagnostic (the plain version ``None``).
+state in the step functions' layout (``baseline_layout`` /
+``pfcs_layout``), so the two can be compared array by array; the kernel
+also returns ``visits``, the entries its searches walked (the eviction
+windows' slots, the LIR bottom's steps), and ``placement``, where it kept
+its state, both diagnostics (the plain version ``None``).
+
+A trace's region of the kernel's scratch holds those arrays, then the
+kernel's own (``baseline_arena`` / ``pfcs_arena``: the lists' links, the
+free-slot bitmaps, the per-key maps); the wrapper hands the kernel every
+array's offset.  The kernel keeps what it reads in shared memory where it
+fits and says where: ``{"mode": "shared" | "keys global" | "global",
+"shared_bytes": n}``, ``"keys global"`` when the per-key arrays do not fit
+beside the slots, ``"global"`` when the slots do not fit either.
 
 Stamps are int32 micro-op ticks: each access advances ``POLICY_TICKS``
 (baselines) or ``levels + budget`` (PFCS) of them, so both scans refuse a
@@ -41,8 +49,8 @@ from .cuda import CudaKernel
 
 __all__ = ["baseline_scan", "pfcs_scan", "baseline_scan_ref",
            "pfcs_scan_ref", "baseline_layout", "pfcs_layout",
-           "ENGINE_BASELINE", "ENGINE_PFCS", "POLICY_IDS", "MAX_LEVELS",
-           "STAMP_SPACE"]
+           "baseline_arena", "pfcs_arena", "ENGINE_BASELINE", "ENGINE_PFCS",
+           "POLICY_IDS", "MAX_LEVELS", "STAMP_SPACE"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -51,11 +59,11 @@ _INT = ctypes.c_int
 ENGINE_BASELINE = CudaKernel(
     "engine_baseline", "engine_baseline.cu", "pfcs_engine_baseline",
     [_P, _I64, _I64, _INT, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _I64,
-     _P, _INT, _P, _P, _P, _P])
+     _P, _INT, _P, _P, _P, _P, _P])
 ENGINE_PFCS = CudaKernel(
     "engine_pfcs", "engine_pfcs.cu", "pfcs_engine_pfcs",
     [_P, _I64, _I64, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P, _P, _P,
-     _I64, _P, _INT, _P, _P, _P])
+     _I64, _P, _INT, _P, _P, _P, _P])
 
 #: the policy codes of ``engine_baseline.cu``
 POLICY_IDS = {"lru": 0, "fifo": 1, "2q": 2, "arc": 3, "lirs": 4}
@@ -63,6 +71,12 @@ POLICY_IDS = {"lru": 0, "fifo": 1, "2q": 2, "arc": 3, "lirs": 4}
 MAX_LEVELS = 8
 #: int32 stamps: an access's ticks times the trace length stay below this
 STAMP_SPACE = 2**31
+_MODES = ("shared", "keys global", "global")
+
+
+def _placement(out: ctypes.Array) -> Dict:
+    """The kernel's report of where it kept its state."""
+    return {"mode": _MODES[out[0]], "shared_bytes": int(out[1])}
 
 
 def baseline_layout(policy: str, total: int,
@@ -97,6 +111,67 @@ def pfcs_layout(caps: Sequence[int],
         out += [(("levels", i, f), int(c) + 1)
                 for f in ("keys", "t", "pf", "deg")]
     return out + [(("where",), n_keys)]
+
+
+def _bitmap(n: int) -> List[Tuple[str, int]]:
+    """A free-slot bitmap of ``n`` slots: its two levels' words."""
+    lo = (n + 31) // 32
+    return [("lo", lo), ("hi", (lo + 31) // 32)]
+
+
+def _list(name: str, n: int, bitmap: bool = False) -> List:
+    """A list's links over ``n`` entries (each entry's next and previous
+    side by side: two int32 words in the region, which the kernel packs to
+    two 16-bit halves of one word in shared memory), and its free-slot
+    bitmap."""
+    out = [((name, "links"), 2 * n)]
+    if bitmap:
+        out += [((name, f), w) for f, w in _bitmap(n)]
+    return out
+
+
+def baseline_arena(policy: str, total: int,
+                   n_keys: int) -> List[Tuple[Tuple[str, ...], int]]:
+    """The baseline kernel's own arrays, after ``baseline_layout``'s, in
+    its order (``csrc/engine_baseline.cu``'s ``kKinds``): the shadow's
+    links, tiers and key -> slot map, then the policy's lists and key
+    map."""
+    out = _list("sh", total) + [(("sh", "tier"), total),
+                                (("sh", "slot"), n_keys)]
+    if policy in ("lru", "fifo"):
+        out += _list("lru", total) + [(("where",), n_keys)]
+    elif policy == "2q":
+        kin, kout, km = twoq_sizes(total)
+        out += _list("a1", kin) + _list("ao", kout) + _list("am", km)
+        out += [(("freed", f), w) for f, w in _bitmap(kout)]
+        out += [(("where",), n_keys)]
+    elif policy == "arc":
+        for name, n in (("t1", total), ("t2", total), ("b1", total),
+                        ("b2", 2 * total + 1)):
+            out += _list(name, n, bitmap=True)
+        out += [(("where",), n_keys)]
+    elif policy == "lirs":
+        out += _list("q", n_keys)
+    else:
+        raise ValueError(f"unknown policy {policy!r}")
+    return [(("arena",) + path, n) for path, n in out]
+
+
+def pfcs_arena(caps: Sequence[int],
+               n_keys: int) -> List[Tuple[Tuple, int]]:
+    """The PFCS kernel's own arrays, after ``pfcs_layout``'s: every
+    level's slots numbered across levels (keys, prefetched flags, degrees,
+    the links of each level's stamp order), each level's free-slot bitmap
+    one after the other, then the key -> slot map and a copy of the degree
+    table.  The kernel writes the levels out in ``pfcs_layout`` at the
+    end."""
+    slots = sum(int(c) + 1 for c in caps)
+    bitmaps = [_bitmap(int(c) + 1) for c in caps]
+    out = [((name,), slots) for name in ("keys", "pf", "deg", "nxt", "prv")]
+    out += [(("lo",), sum(b[0][1] for b in bitmaps)),
+            (("hi",), sum(b[1][1] for b in bitmaps)),
+            (("slot",), n_keys), (("degree",), n_keys)]
+    return [(("arena",) + path, n) for path, n in out]
 
 
 def _offsets(layout) -> ctypes.Array:
@@ -178,7 +253,7 @@ def baseline_scan_ref(accesses: torch.Tensor, policy: str,
         miss += (valid & ~hit).to(torch.int32)
         demand += valid.to(torch.int32)
     return {"hits": hits, "miss": miss, "demand": demand, "state": state,
-            "visits": None}
+            "visits": None, "placement": None}
 
 
 def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
@@ -186,7 +261,8 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
     """Run a batch of traces through one baseline system: ``accesses`` is
     (B, T) int32, -1 padding; ``caps`` the level capacities; keys below
     ``n_keys``.  Returns ``{"hits": (B, L+1) (MEM last), "miss": (B,),
-    "demand": (B,), "state": {...}, "visits": (B,) int64 or None}``."""
+    "demand": (B,), "state": {...}, "visits": (B,) int64 or None,
+    "placement": {...} or None}``."""
     if policy not in POLICY_IDS:
         raise ValueError(f"unknown policy {policy!r}")
     caps = [int(c) for c in caps]
@@ -200,8 +276,9 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
     batch, length = accesses.shape
     total = sum(caps)
     layout = baseline_layout(policy, total, n_keys)
-    offsets = _offsets(layout)
-    words = sum(n for _, n in layout)
+    region = layout + baseline_arena(policy, total, n_keys)
+    offsets = _offsets(region)
+    words = sum(n for _, n in region)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     cums = torch.tensor(list(accumulate(caps)), dtype=torch.int32,
                         device=dev)
@@ -216,12 +293,13 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
         sizes = (total, lirs_sizes(total)[1], 0)
     else:
         sizes = (0, 0, 0)
+    placed = (ctypes.c_int * 2)(-1, 0)
     if batch:
         ENGINE_BASELINE.launch(dev, accesses.data_ptr(), batch, length,
                                POLICY_IDS[policy], cums.data_ptr(), n_levels,
                                total, *sizes, n_keys, scratch.data_ptr(),
                                words, ctypes.addressof(offsets),
-                               len(offsets), p_out.data_ptr(),
+                               len(offsets), placed, p_out.data_ptr(),
                                counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
     if policy == "arc":
@@ -233,7 +311,8 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
     return {"hits": counters[:, :n_levels + 1],
             "miss": counters[:, n_levels + 1],
             "demand": counters[:, n_levels + 2], "state": state,
-            "visits": visits}
+            "visits": visits,
+            "placement": _placement(placed) if batch else None}
 
 
 # --------------------------------------------------------------------------- #
@@ -255,7 +334,8 @@ def pfcs_scan_ref(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
                      degree)
     stats = state["stats"]
     return {**stats, "state": {"levels": state["levels"],
-                               "where": state["where"]}, "visits": None}
+                               "where": state["where"]}, "visits": None,
+            "placement": None}
 
 
 def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
@@ -266,7 +346,8 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     padding; the discovery tables (B, K, budget) int32 targets (-1 pad),
     (B, K, budget) bool truth and (B, K) int32 degrees.  Returns
     ``{"hits": (B, L), "miss", "demand", "issued", "used", "true": (B,),
-    "state": {...}, "visits": (B,) int64 or None}``."""
+    "state": {...}, "visits": (B,) int64 or None, "placement": {...} or
+    None}``."""
     caps = [int(c) for c in caps]
     _check_levels(caps)
     if accesses.dim() == 2:
@@ -293,8 +374,9 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     dev = accesses.device
     length = accesses.shape[1]
     layout = pfcs_layout(caps, n_keys)
-    offsets = _offsets(layout)
-    words = sum(n for _, n in layout)
+    region = layout + pfcs_arena(caps, n_keys)
+    offsets = _offsets(region)
+    words = sum(n for _, n in region)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     n_levels = len(caps)
     counters = torch.empty((batch, n_levels + 5), dtype=torch.int32,
@@ -303,6 +385,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     caps_t = torch.tensor(caps, dtype=torch.int32, device=dev)
     targets, degree = targets.contiguous(), degree.contiguous()
     truth8 = truth.to(torch.uint8).contiguous()
+    placed = (ctypes.c_int * 2)(-1, 0)
     if batch:
         ENGINE_PFCS.launch(dev, accesses.data_ptr(), batch, length,
                            caps_t.data_ptr(), n_levels, n_keys,
@@ -311,7 +394,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
                            targets.data_ptr(), truth8.data_ptr(),
                            degree.data_ptr(), scratch.data_ptr(), words,
                            ctypes.addressof(offsets), len(offsets),
-                           counters.data_ptr(), visits.data_ptr())
+                           placed, counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
     levels = tuple(dict(state["levels"][i], pf=state["levels"][i]["pf"]
                         .bool()) for i in range(n_levels))
@@ -320,4 +403,5 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
             "demand": c[:, n_levels + 1], "issued": c[:, n_levels + 2],
             "used": c[:, n_levels + 3], "true": c[:, n_levels + 4],
             "state": {"levels": levels, "where": state["where"]},
-            "visits": visits}
+            "visits": visits,
+            "placement": _placement(placed) if batch else None}

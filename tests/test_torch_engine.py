@@ -162,8 +162,9 @@ def test_engine_checks_its_inputs(monkeypatch):
         simulate_trace(tr, "lru", CAPS, device="cpu")
     with pytest.raises(ValueError, match="int32 stamp space"):
         simulate_trace(tr, "pfcs", CAPS, device="cpu")
-    with pytest.raises(ValueError, match="int32 stamp space"):
-        fast_lru_hit_rate(tr.accesses, 8, device="cpu")
+    # (fast_lru_hit_rate runs such a trace in segments)
+    assert (fast_lru_hit_rate(tr.accesses, 8, device="cpu")
+            == R.fast_lru_hit_rate(tr.accesses, 8))
     monkeypatch.setattr(kengine, "STAMP_SPACE", 7 * tr.length + 1)
     assert simulate_trace(tr, "pfcs", CAPS, device="cpu").demand_accesses \
         == tr.length
@@ -369,3 +370,46 @@ def test_fast_lru_hit_rate_equals_reference():
                 == R.fast_lru_hit_rate(acc, cap))
     assert fast_lru_hit_rate(np.zeros(0, dtype=np.int64), 4,
                              device="cpu") == 0.0
+
+
+@pytest.mark.parametrize("cap", [1, 7, 32])
+def test_fast_lru_hit_rate_on_any_int32_key(cap):
+    """Keys down to -2**31 and up to 2**31 - 1 (all but -1), relabelled
+    densely on the host: the reference's hit rate."""
+    rng = np.random.default_rng(cap)
+    pool = np.concatenate([[-2**31, -2**31 + 1, -2, 0, 2**31 - 1],
+                           rng.integers(-2**31, 2**31 - 1, size=40)])
+    pool = pool[pool != -1]
+    acc = pool[rng.zipf(1.3, size=500) % len(pool)].astype(np.int64)
+    assert (fast_lru_hit_rate(acc, cap, device="cpu")
+            == R.fast_lru_hit_rate(acc, cap))
+
+
+def test_fast_lru_hit_rate_refuses_the_empty_marker():
+    """-1 marks an empty slot in the reference's scan, where a -1 access
+    hits every empty slot; the port refuses it and says why."""
+    with pytest.raises(ValueError, match="empty slot"):
+        fast_lru_hit_rate(np.array([3, -1, 3]), 2, device="cpu")
+
+
+@pytest.mark.parametrize("cap", [1, 5, 12])
+def test_fast_lru_hit_rate_in_segments(cap, monkeypatch):
+    """Past the stamp space the trace runs in segments, the LRU's keys and
+    order carried from one to the next: the reference's hit rate (the
+    stamp space cut to 4 x 40 ticks, so that 600 accesses take 17 to 22
+    segments)."""
+    monkeypatch.setattr(kengine, "STAMP_SPACE", 4 * 40)
+    acc = R.zipf_trace(n_keys=60, n_accesses=600, seed=cap).accesses
+    acc = acc.astype(np.int64) * 7919 - 2**30     # sparse, negative keys
+    assert (fast_lru_hit_rate(acc, cap, device="cpu")
+            == R.fast_lru_hit_rate(acc, cap))
+    calls = []
+    orig = kengine.baseline_scan
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[1])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(kengine, "baseline_scan", counted)
+    fast_lru_hit_rate(acc, cap, device="cpu")
+    assert len(calls) > 1 and max(calls) <= 39

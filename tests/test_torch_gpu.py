@@ -530,20 +530,54 @@ def test_cuda_engine_launches_once_per_batch(cuda_device):
 def test_cuda_engine_refuses_a_layout_it_does_not_know(cuda_device):
     """The engine kernels take each state array's offset from the
     wrapper's layout and refuse, before any launch, a table whose length
-    is not their policy's (baseline) or 4 per level and 1 (PFCS)."""
+    is not their policy's (baseline: its outputs and its own arrays) or 4
+    per level and 10 (PFCS): here the outputs alone."""
     import ctypes
 
     from repro_torch.kernels import engine
 
     arc = engine._offsets(engine.baseline_layout("arc", 8, 4))
     two = engine._offsets(engine.pfcs_layout([4, 8], 4))
+    placed = (ctypes.c_int * 2)(-1, 0)
     before = launch_counts()
     with pytest.raises(RuntimeError, match="engine_baseline"):
         engine.ENGINE_BASELINE.launch(
             cuda_device, 0, 1, 1, engine.POLICY_IDS["lru"], 0, 1, 8, 0, 0,
-            0, 4, 0, 32, ctypes.addressof(arc), len(arc), 0, 0, 0)
+            0, 4, 0, 32, ctypes.addressof(arc), len(arc), -1, placed, 0, 0,
+            0)
     with pytest.raises(RuntimeError, match="engine_pfcs"):
         engine.ENGINE_PFCS.launch(
             cuda_device, 0, 1, 1, 0, 1, 4, 4, 4, 8, 0, 0, 0, 0, 0, 32,
-            ctypes.addressof(two), len(two), 0, 0)
+            ctypes.addressof(two), len(two), -1, placed, 0, 0)
     assert launch_counts() == before
+    assert list(placed) == [-1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ENGINE_SYSTEMS)
+def test_cuda_engine_state_placements(cuda_device, system):
+    """Each engine kernel equals its plain loop with its state in shared
+    memory (the check batch), with the per-key arrays in global memory (a
+    key space past shared memory) and with every array in global memory
+    (levels past shared memory), and says where it kept it."""
+    from repro_torch.kernels import engine
+
+    cs = chip_smoke()
+    for traces, levels, mode in (
+            (cs.check_traces(200), cs.CHECK_CAPS, "shared"),
+            (cs.spread_traces(cs.check_traces(120)), cs.CHECK_CAPS,
+             "keys global"),
+            (cs.check_traces(120), cs.GLOBAL_CAPS, "global")):
+        caps = [c for _, c in levels]
+        acc, n_keys = cs.batch_inputs(traces)
+        if system == "pfcs":
+            args = (acc, caps, n_keys, 4, 8, True, False,
+                    *cs.pfcs_table_inputs(traces, levels, n_keys))
+            kern, plain = engine.pfcs_scan(*args), engine.pfcs_scan_ref(*args)
+        else:
+            args = (acc, system, caps, n_keys)
+            kern = engine.baseline_scan(*args)
+            plain = engine.baseline_scan_ref(*args)
+        torch.cuda.synchronize()
+        assert cs.tree_diff(plain, kern) == []
+        assert kern["placement"]["mode"] == mode

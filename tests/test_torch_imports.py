@@ -174,6 +174,63 @@ def _chip_smoke():
     return chip_smoke
 
 
+#: what a ported package exports beyond the reference's ``__all__``
+PORT_ADDITIONS = {
+    "core": {"state_from_arrays"},
+    "core.engine": {"ShardScanReport"},
+    "kernels": {"KERNELS", "build_all", "launch_counts",
+                "reset_launch_counts", "engine", "factorize", "gcd", "ref"},
+    "serving": {"make_kv_backend"},
+}
+#: the reference's exports the port does not have yet, by the ROADMAP.md
+#: queue A item that ports them (``obs``: the whole package, A.13)
+NOT_YET = {
+    "obs": "A.13",
+    "serving": {
+        "A.9": {"ElasticController", "ElasticShardedPagedKVCache",
+                "RecoveryReport"},
+        "A.10": {"EXPERT_PARITY_COUNTERS", "ExpertCache", "ExpertCacheStats",
+                 "VectorizedExpertCache"},
+        "A.12": {"DEDUP_COUNTERS", "DedupElasticShardedPagedKVCache",
+                 "DedupOracle", "DedupShardedPagedKVCache",
+                 "DedupVectorizedPagedKVCache"},
+    },
+}
+
+
+@pytest.mark.parametrize("package", ["core", "core.engine", "kernels",
+                                     "obs", "serving"])
+def test_package_exports_match_the_reference(package):
+    """Each ported package's ``__all__`` is the reference's, apart from the
+    named additions and the names whose ROADMAP item is still open; every
+    name it lists imports."""
+    import importlib
+
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    ref_all = set(ref.__all__)
+    port_all = set(getattr(port, "__all__", ()))
+    missing = NOT_YET.get(package, {})
+    if isinstance(missing, str):          # the package is not ported yet
+        assert not port_all, (package, missing)
+    else:
+        assert ref_all - port_all == set().union(*missing.values())
+    assert port_all - ref_all == PORT_ADDITIONS.get(package, set())
+    assert all(hasattr(port, name) for name in port_all)
+
+
+def test_kernels_export_the_limb_wrappers():
+    """The import ``benchmarks/cases.py`` makes of the reference works
+    against the port."""
+    from repro_torch.kernels import (divisibility_scan_limbs,
+                                     factorize_batch_limbs, gcd_batch_limbs)
+
+    assert (divisibility_scan_limbs, factorize_batch_limbs,
+            gcd_batch_limbs) == (ops.divisibility_scan_limbs,
+                                 ops.factorize_batch_limbs,
+                                 ops.gcd_batch_limbs)
+
+
 def test_chip_smoke_needs_a_card(monkeypatch, capsys):
     """Without a card ``main()`` exits non-zero and prints no result."""
     chip_smoke = _chip_smoke()
@@ -608,12 +665,23 @@ def test_chip_smoke_engine_check_on_cpu(monkeypatch):
     """``engine_check`` on the CPU at 120-access traces: every check runs
     (the plain version on both sides), 2Q holds two keys at capacity 1
     and every other policy one, the swing trace drives ARC's p to 0 and
-    to c, and the check batch's times feed the ``kernels`` line."""
+    to c, every system runs on the placement batches (a key space of
+    60,000, and levels of 20,000 slots), and the check batch's times
+    feed the ``kernels`` line."""
     chip_smoke = _cpu_smoke(monkeypatch)
     monkeypatch.setattr(chip_smoke, "CHECK_LENGTH", 120)
+    monkeypatch.setattr(chip_smoke, "PLACEMENT_LENGTH", 40)
     ctx = chip_smoke.Context()
     out = chip_smoke.phase_engine_check(ctx)
-    assert len(out["checks"]) == 16
+    assert len(out["checks"]) == 28
+    assert out["placements_checked"] == {"shared": 16, "keys global": 6,
+                                         "global": 6}
+    wide = [c for c in out["checks"] if "keys global" in c["check"]]
+    assert all(" 60000 keys" in c["check"] for c in wide)
+    deep = [c for c in out["checks"] if c["check"].endswith(", global")]
+    assert all("[8, 24, 20000]" in c["check"] for c in deep)
+    # (the plain version, on the CPU, keeps its state nowhere in particular)
+    assert all(c["placement"] is None for c in out["checks"])
     assert all(c["max_abs_err"] == 0 for c in out["checks"])
     assert out["held_at_capacity_1"] == {"lru": 1, "fifo": 1, "2q": 2,
                                          "arc": 1, "lirs": 1}
@@ -684,6 +752,8 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
         for s in range(2)] for w, (gen, kw) in small.items()}
     monkeypatch.setattr(chip_smoke, "TABLE1_PFCS", pfcs)
     ctx = chip_smoke.Context()
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
     out = chip_smoke.phase_table1(ctx)
     assert out["launches"]["engine_baseline"] == 10
     assert out["launches"]["engine_pfcs"] == 2
@@ -692,6 +762,13 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
     assert ctx.engine_path["engine_pfcs"]["launches"] == 2
     assert all(ctx.engine_path[n]["path_bound_ms"] > 0
                for n in chip_smoke.ENGINE)
+    assert set(out["engine_ptxas"]) == set(chip_smoke.ENGINE)
+    rows = [r for ln in lines if ln["phase"] == "table1_workload"
+            for r in ln["systems"].values()]
+    assert len(rows) == 12
+    # the serial step's latency: kernel ms over the longest trace's steps
+    assert all(r["ns_per_step"] == r["kernel_ms"] * 1e6 / 300
+               and r["placement"] is None for r in rows)
 
     tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
     lru = simulate_baseline("lru", tr, chip_smoke.TABLE1_CAPS)
