@@ -83,9 +83,21 @@ struct Victim {
   int key, pf, deg;
 };
 
+// One level's scalars.  A step's insert, eviction or removal reads them in
+// one copy (vector loads, before any of its stores) and writes back what it
+// changes.  ``only``: the one free slot when the level holds C of its C + 1
+// (as it does after each eviction), kNil when that is not known, so that an
+// insert then skips the bitmap.
+struct alignas(16) LevelMeta {
+  int base;         // the level's first slot, numbered across levels
+  int cap, head, tail, n, only, lo_at, hi_at;
+  long long t_at;   // where the level's stamps start in the region
+  int n_hi, pad;
+};
+
 // The levels' slots are numbered across levels: level l's slot i is slot
-// base[l] + i of the arrays below, so one pointer serves every level and
-// the per-level scalars (in shared memory) are the only thing a level adds.
+// base + i of the arrays below, so one pointer serves every level and the
+// per-level scalars (in shared memory) are the only thing a level adds.
 template <typename L>
 struct Pfcs {
   int *keys, *pf, *deg;     // every level's slots
@@ -95,80 +107,78 @@ struct Pfcs {
   int* slot;                // key -> slot (numbered across levels)
   const int* dg;            // the degree table
   int* region;
-  // per level, in shared memory; ``only``: the one free slot when the
-  // level holds C of its C + 1 (as it does after each eviction), kNil
-  // when that is not known, so that an insert then skips the bitmap
-  int *base, *cap, *head, *tail, *n, *only, *lo_at, *hi_at, *n_hi;
-  long long* t_at;          // where each level's stamps start in the region
+  LevelMeta* lm;            // per level, in shared memory
   int window;
   long long walked;
 
   using C = Chain<L>;
 
-  __device__ __forceinline__ void append(int l, int g) {
-    const int tl = tail[l];
-    prv[g] = C::to(tl);
+  __device__ __forceinline__ void append(int l, LevelMeta& m, int g) {
+    prv[g] = C::to(m.tail);
     nxt[g] = C::to(kNil);
-    if (tl == kNil) head[l] = g;
-    else nxt[tl] = C::to(g);
-    tail[l] = g;
+    if (m.tail == kNil) lm[l].head = m.head = g;
+    else nxt[m.tail] = C::to(g);
+    lm[l].tail = m.tail = g;
   }
 
-  __device__ __forceinline__ void unlink(int l, int g) {
+  __device__ __forceinline__ void unlink(int l, LevelMeta& m, int g) {
     const int p = C::at(prv[g]), nx = C::at(nxt[g]);
-    if (p == kNil) head[l] = nx;
+    if (p == kNil) lm[l].head = m.head = nx;
     else nxt[p] = C::to(nx);
-    if (nx == kNil) tail[l] = p;
+    if (nx == kNil) lm[l].tail = m.tail = p;
     else prv[nx] = C::to(p);
   }
 
-  __device__ __forceinline__ FreeSet free_set(int l) const {
-    return FreeSet{lo + lo_at[l], hi + hi_at[l], n_hi[l]};
+  __device__ void remove(int l, LevelMeta& m, int g) {
+    const int i = g - m.base;
+    keys[g] = kEmpty;
+    unlink(l, m, g);
+    FreeSet{lo + m.lo_at, hi + m.hi_at, m.n_hi}.add(i);
+    lm[l].n = m.n = m.n - 1;
+    lm[l].only = m.only = m.n == m.cap ? i : kNil;
   }
 
   __device__ void remove(int l, int g) {
-    keys[g] = kEmpty;
-    unlink(l, g);
-    FreeSet fs = free_set(l);
-    fs.add(g - base[l]);
-    n[l] -= 1;
-    only[l] = n[l] == cap[l] ? g - base[l] : kNil;
+    LevelMeta m = lm[l];
+    remove(l, m, g);
   }
 
   __device__ void touch(int g, int tick) {   // an L0 hit: to the newest end
-    region[t_at[0] + g - base[0]] = tick;
+    LevelMeta m = lm[0];
+    region[m.t_at + g - m.base] = tick;
     pf[g] = 0;
-    if (tail[0] != g) {
-      unlink(0, g);
-      append(0, g);
+    if (m.tail != g) {
+      unlink(0, m, g);
+      append(0, m, g);
     }
   }
 
   // _add at the level's first free slot; whether it is over capacity
   __device__ bool add(int l, int key, int tick, int flag, int d) {
-    FreeSet fs = free_set(l);
-    int i = n[l] == cap[l] ? only[l] : kNil;
+    LevelMeta m = lm[l];
+    FreeSet fs{lo + m.lo_at, hi + m.hi_at, m.n_hi};
+    int i = m.n == m.cap ? m.only : kNil;
     if (i == kNil) i = fs.first();
     if (i == kNil) i = 0;
     fs.remove(i);
-    only[l] = kNil;
-    const int g = base[l] + i;
+    lm[l].only = kNil;
+    const int g = m.base + i;
     keys[g] = key;
-    region[t_at[l] + i] = tick;
+    region[m.t_at + i] = tick;
     pf[g] = flag;
     deg[g] = d;
-    append(l, g);
+    append(l, m, g);
     where[key] = l;
     slot[key] = g;
-    n[l] += 1;
-    return n[l] > cap[l];
+    lm[l].n = m.n + 1;
+    return m.n + 1 > m.cap;
   }
 
   // among the w least recent slots the first of the lowest degree
   __device__ Victim evict(int l) {
-    const int c1 = cap[l] + 1;
-    const int w = window < c1 ? window : c1;
-    int g = head[l], best = g, best_deg = kI32Max;
+    LevelMeta m = lm[l];
+    const int w = window < m.cap + 1 ? window : m.cap + 1;
+    int g = m.head, best = g, best_deg = kI32Max;
     for (int r = 0; r < w; ++r) {
       const int d = deg[g];
       if (d < best_deg) {
@@ -179,7 +189,7 @@ struct Pfcs {
     }
     walked += w;
     const Victim out{keys[best], pf[best], deg[best]};
-    remove(l, best);
+    remove(l, m, best);
     return out;
   }
 };
@@ -188,10 +198,7 @@ template <bool kS, bool kK>
 __global__ void __launch_bounds__(kThreads)
     engine_pfcs_kernel(const Params q, const Arena ar) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int base[kMaxLevels], cap[kMaxLevels], head[kMaxLevels],
-      tail[kMaxLevels], cnt[kMaxLevels], only[kMaxLevels], lo_at[kMaxLevels],
-      hi_at[kMaxLevels], n_hi[kMaxLevels];
-  __shared__ long long t_at[kMaxLevels];
+  __shared__ LevelMeta lm[kMaxLevels];
   using SL = Link<kS>;
   const int tid = threadIdx.x;
   const long long blk = blockIdx.x;
@@ -215,16 +222,7 @@ __global__ void __launch_bounds__(kThreads)
   pc.slot = place<int, kK>(ar, x + 7, region, smem);
   int* deg_copy = place<int, kK>(ar, x + 8, region, smem);
   pc.region = region;
-  pc.base = base;
-  pc.cap = cap;
-  pc.head = head;
-  pc.tail = tail;
-  pc.n = cnt;
-  pc.only = only;
-  pc.lo_at = lo_at;
-  pc.hi_at = hi_at;
-  pc.n_hi = n_hi;
-  pc.t_at = t_at;
+  pc.lm = lm;
   pc.window = q.window;
   pc.walked = 0;
   int b0 = 0, lo0 = 0, hi0 = 0;
@@ -239,17 +237,9 @@ __global__ void __launch_bounds__(kThreads)
       pc.deg[b0 + i] = 0;
       t[i] = i - c1;
     }
-    if (tid == 0) {
-      base[l] = b0;
-      cap[l] = c1 - 1;
-      head[l] = tail[l] = kNil;
-      cnt[l] = 0;
-      only[l] = kNil;
-      lo_at[l] = lo0;
-      hi_at[l] = hi0;
-      n_hi[l] = fs.n_hi;
-      t_at[l] = ar.at[4 * l + 1];
-    }
+    if (tid == 0)
+      lm[l] = LevelMeta{b0, c1 - 1, kNil, kNil, 0, kNil, lo0, hi0,
+                        ar.at[4 * l + 1], fs.n_hi, 0};
     b0 += c1;
     lo0 += FreeSet::lo_words(c1);
     hi0 += FreeSet::hi_words(c1);
@@ -329,7 +319,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   for (int l = 0; l < L; ++l) {       // the levels out, in their layout
-    const int b = base[l], c1 = cap[l] + 1;
+    const int b = lm[l].base, c1 = lm[l].cap + 1;
     int* keys = region + ar.at[4 * l];
     int* pf = region + ar.at[4 * l + 2];
     int* deg = region + ar.at[4 * l + 3];

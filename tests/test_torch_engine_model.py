@@ -821,9 +821,10 @@ def test_pfcs_model_equals_oracle_on_table1(workload, table1_traces):
 
 CSRC = Path(kengine.__file__).parent / "csrc"
 #: shared bytes a block may take on an H100 (cudaDevAttrMaxSharedMemory-
-#: PerBlockOptin), less the PFCS kernel's static per-level scalars
+#: PerBlockOptin), less the PFCS kernel's static per-level scalars (eight
+#: 48-byte ``LevelMeta``)
 H100_SHARED = 232_448
-PFCS_STATIC = 9 * 4 * 8 + 8 * 8
+PFCS_STATIC = 48 * 8
 #: engine_baseline.cu's kMeta: its counters, boundary nodes, a chunk's
 #: tiers and hits
 BASELINE_FIXED = (4 * (2 * 8 + 3) + 2 * 1024 + 15) // 16 * 16
