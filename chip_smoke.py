@@ -16,10 +16,13 @@ also report where their wall time went, ``sharded_time_split``):
                  ``nvidia-smi``'s name and power limit (``null`` with the
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
-  build          the eight kernels and an empty one, with ``-Xptxas -v``'s
-                 register, shared-memory and spill lines (for the
-                 kernels of ``NAMED_INSTANCES``, under the name of each
-                 template instance), and the launch floor: the
+  build          the eight kernels and an empty one, one ``nvcc`` each,
+                 all started together: it waits for the six discovery
+                 kernels and the empty one (``-Xptxas -v``'s register,
+                 shared-memory and spill lines, for the kernels of
+                 ``NAMED_INSTANCES`` under the name of each template
+                 instance) and leaves the two engine kernels building
+                 until ``engine_check``; and the launch floor: the
                  graph-replay time of the empty kernel launched through
                  the same ``ctypes`` binding (``launch_floor_ms``,
                  repeated in every kernel line);
@@ -48,8 +51,8 @@ also report where their wall time went, ``sharded_time_split``):
                  requests) through ``SlotMachine`` / ``SlotOracle``
                  against ``BENCH_case_batching.json``, and through
                  ``kv="sharded"`` with the same counters;
-  batching_full  ``case_batching``'s full configuration, its 4000 requests
-                 cut to 2000, ``kv="sharded"`` against ``kv="vec"``;
+  batching_full  ``case_batching``'s full configuration (4000 requests),
+                 ``kv="sharded"`` against ``kv="vec"``;
   launcher       ``repro_torch.launch.serve --null-model --kv sharded``,
                  each kernel held against its plain version on the
                  inputs that run gave it;
@@ -71,20 +74,28 @@ also report where their wall time went, ``sharded_time_split``):
                  ``kv="sharded"``, ``max_bits`` 128, against ``kv="vec"``;
   launcher_wide  the launcher with ``--max-bits 1024``;
   engine_check   the two engine kernels (``engine_baseline``: LRU, FIFO,
-                 2Q, ARC, LIRS with the tier shadow; ``engine_pfcs``)
-                 against their plain versions (the step functions run as
-                 a Python loop) on the card, every counter and the whole
-                 final state: a ragged batch of four traces of the port's
-                 generators (about 256 accesses) through every system;
-                 PFCS without prefetch, with prefetch on every access and
-                 with a victim window wider than every level (about 128
-                 accesses); levels of capacity 1 (2Q holds two keys, as in the reference); a
-                 trace that drives ARC's p to 0 and to c (p bit for bit);
-                 then the state's other placements: every system on the
-                 check traces with their keys spread over 60,000 (the
-                 per-key arrays in global memory) and at levels of
-                 8 / 24 / 20,000 (every array in global memory), each
-                 check line naming where the kernel kept its state;
+                 2Q, ARC, LIRS with the tier shadow; ``engine_pfcs``) on
+                 the card against their plain versions (the step
+                 functions run as a Python loop on the host's CPU), every
+                 counter and the whole final state: a ragged batch of
+                 four traces of the port's generators (about 512
+                 accesses) through every system; PFCS without prefetch,
+                 with prefetch on every access and with a victim window
+                 wider than every level (about 256 accesses); levels of
+                 capacity 1 (2Q holds two keys, as in the reference); a
+                 trace that drives ARC's p to 0 and to c (p bit for
+                 bit); each of these again with the state asked into the
+                 two other placements (the per-key arrays in global
+                 memory; every array there), equal to the same plain
+                 result; then the placements the sizes choose: every
+                 system on the check traces with their keys spread over
+                 60,000 (the per-key arrays in global memory) and at
+                 levels of 8 / 24 / 20,000 (every array in global
+                 memory) against the plain loop, and on a long batch at
+                 those levels whose keys outnumber its slots (164,000
+                 accesses over 28,000 and 30,000 keys: every policy
+                 evicts) against the scalar oracles' counters, each line
+                 naming where the kernel kept its state;
   table1         the paper's Table 1 at ``benchmarks/table1.py``'s
                  configuration, unreduced (three workloads, three trials
                  each): every system through ``simulate_batch`` on the
@@ -141,6 +152,13 @@ pays), ``plain_ms`` per call of the plain version in a loop, and
 
 Without a card (``torch.cuda.is_available()`` false) it prints no result
 and exits 2.
+
+    python3 chip_smoke.py --compare-engine DIR [--rounds 2]
+
+runs none of that: it times the Table-1 engine kernels of the port in
+``DIR`` (holding its ``src``, e.g. ``git archive <commit> src`` unpacked)
+against this tree's, each tree in processes of its own, in turns
+(``compare_engine``).
 """
 
 from __future__ import annotations
@@ -253,9 +271,9 @@ TABLE1_PFCS_ORACLE = ("hft",)
 #: and trace lengths: the check batch, the PFCS variants' batch and the
 #: capacity-1 batch
 CHECK_CAPS = (("L1", 8), ("L2", 24), ("L3", 64))
-CHECK_LENGTH = 256
-VARIANT_LENGTH = 128
-CAPACITY1_LENGTH = 60
+CHECK_LENGTH = 512
+VARIANT_LENGTH = 256
+CAPACITY1_LENGTH = 100
 #: ``engine_check``'s placement batches: the check traces at this length,
 #: their keys spread by ``KEY_SPREAD`` (400 keys become a 60,000-key space,
 #: whose per-key arrays do not fit in shared memory beside the slots), and
@@ -264,12 +282,25 @@ CAPACITY1_LENGTH = 60
 PLACEMENT_LENGTH = 48
 KEY_SPREAD = 150
 GLOBAL_CAPS = (("L1", 8), ("L2", 24), ("L3", 20_000))
-
-#: ``batching_full``'s requests: ``case_batching``'s full configuration
-#: has 4000; its depth is cut to this many so that the script, which has
-#: grown by a path a slice, stays inside its time limit (its sharded run's
-#: host Python takes about 7 ms a request)
-BATCHING_FULL_REQUESTS = 2000
+#: ``engine_check``'s long batch at ``GLOBAL_CAPS`` (``global_traces``):
+#: its blocks' keys, and its counters by the port's scalar oracles
+#: (``simulate_baseline`` / ``simulate_pfcs``), which
+#: ``tests/test_torch_engine_ref.py`` holds to the reference's: per system
+#: and trace, the hits per level (the baselines' MEM last), misses and
+#: demand accesses (PFCS: then the prefetches issued, used and true)
+GLOBAL_BLOCK = 14_000
+GLOBAL_COUNTS = {
+    "lru": [[0, 0, 42000, 0, 42000, 84000], [47, 185, 50680, 0, 29088, 80000]],
+    "fifo": [[0, 0, 42000, 0, 42000, 84000],
+             [47, 185, 47511, 1836, 30421, 80000]],
+    "2q": [[0, 0, 22080, 6032, 55888, 84000],
+           [47, 185, 39019, 503, 40246, 80000]],
+    "arc": [[0, 0, 31016, 0, 52984, 84000], [47, 185, 49899, 916, 28953, 80000]],
+    "lirs": [[0, 0, 24062, 5031, 54907, 84000],
+             [47, 185, 48246, 2539, 28983, 80000]],
+    "pfcs": [[0, 0, 46007, 37993, 84000, 3986, 3986, 3986],
+             [47, 185, 50680, 29088, 80000, 0, 0, 0]],
+}
 
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
@@ -1125,15 +1156,13 @@ def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2,
 def batching_trace(smoke: bool):
     """``benchmarks/cases.py::case_batching``'s arrival trace and engine
     sizes: a 60% burst front plus a Poisson tail, 32-token shared
-    prefixes, ragged tails and decode demands; the full configuration cut
-    to ``BATCHING_FULL_REQUESTS`` requests."""
+    prefixes, ragged tails and decode demands."""
     from repro_torch.serving.slots import poisson_arrival_ticks
 
     if smoke:
         n_req, max_batch, rate, hbm, prefill_tok = 1200, 64, 24.0, 96, 256
     else:
-        n_req, max_batch, rate, hbm, prefill_tok = (BATCHING_FULL_REQUESTS,
-                                                    128, 48.0, 256, 1024)
+        n_req, max_batch, rate, hbm, prefill_tok = 4000, 128, 48.0, 256, 1024
     rng = np.random.default_rng(0)
     ticks = poisson_arrival_ticks(n_req, rate=rate, seed=0, burst_frac=0.6,
                                   silence_ticks=2)
@@ -1214,6 +1243,7 @@ class Context:
         self.scale_rows = []
         self.engine_check = {}        # engine kernel -> its check-batch times
         self.engine_path = {}         # engine kernel -> its table1 launches
+        self.engine_builds = None     # the engine kernels' nvcc, running
 
 
 def phase_device(ctx: Context) -> dict:
@@ -1235,14 +1265,21 @@ NAMED_INSTANCES = ("divisibility_mask", "factorize_squarefree", "gcd",
 
 
 def phase_build(ctx: Context) -> dict:
+    """Start one ``nvcc`` per source, all together; wait for the
+    discovery kernels and the empty one, and leave the engine kernels'
+    (the longest: the baseline's template instances) building while the
+    serving paths run, until ``engine_check``."""
     global LAUNCH_FLOOR_MS
     from repro_torch import kernels
+    from repro_torch.kernels.cuda import Builds
 
     if sorted(kernels.KERNELS) != sorted(PORTED + ENGINE):
         raise AssertionError(f"kernels {sorted(kernels.KERNELS)} != "
                              f"{sorted(PORTED + ENGINE)}")
     floor = launch_floor_kernel()
-    nvcc_s = kernels.build_all(extra=[floor])
+    ctx.engine_builds = Builds([kernels.KERNELS[n] for n in ENGINE])
+    nvcc_s = Builds([k for n, k in kernels.KERNELS.items()
+                     if n not in ENGINE] + [floor]).finish()
     dev = torch.device(DEVICE)
     LAUNCH_FLOOR_MS = graph_ms(lambda: floor.launch(dev, 1, 256))
     return {"nvcc_seconds": nvcc_s,
@@ -1251,7 +1288,9 @@ def phase_build(ctx: Context) -> dict:
                             "csrc/launch_floor.cu through ctypes, graph "
                             "replay",
             "ptxas": {name: ptxas_lines(k) for name, k in
-                      kernels.KERNELS.items()}}
+                      kernels.KERNELS.items() if name not in ENGINE},
+            "engine_kernels": "still building (engine_check waits for "
+                              "them; table1 prints their ptxas lines)"}
 
 
 def ptxas_lines(kernel) -> list:
@@ -1439,10 +1478,9 @@ def phase_batching(ctx: Context) -> dict:
 
 
 def phase_batching_full(ctx: Context) -> dict:
-    """``case_batching``'s full configuration (128 slots, 256 HBM pages,
-    1024-token prefill budget), its 4000 requests cut to
-    ``BATCHING_FULL_REQUESTS``.  It has no checked-in keys:
-    ``kv="sharded"`` is held against ``kv="vec"`` on the same trace."""
+    """``case_batching``'s full configuration (4000 requests, 128 slots,
+    1024-token prefill budget).  It has no checked-in keys: ``kv="sharded"``
+    is held against ``kv="vec"`` on the same trace."""
     arrivals, sizes = batching_trace(smoke=False)
     vec, vec_trail = run_batching(arrivals, sizes, "slot_vec")
     return {"requests": len(arrivals), **sizes,
@@ -1842,8 +1880,9 @@ class EngineCapture:
                 "name": kname,
                 "system": args[1] if kname == "engine_baseline" else "pfcs",
                 "shape": list(args[0].shape), "ms": ms,
-                # where the kernel kept its state (None: the plain version)
-                "placement": out["placement"],
+                # where the kernel kept its state (None: the plain version,
+                # or a tree whose kernels do not say)
+                "placement": out.get("placement"),
                 # (the plain version, on the CPU, counts no visits)
                 "visits": (None if out["visits"] is None
                            else int(out["visits"].sum())),
@@ -1910,6 +1949,44 @@ def spread_traces(traces) -> list:
                   n_keys=tr.n_keys * f) for tr in traces]
 
 
+def global_traces() -> list:
+    """Two traces with more distinct keys than ``GLOBAL_CAPS`` hold, so
+    that every system evicts with its whole state in global memory: two
+    blocks of ``GLOBAL_BLOCK`` keys looped A A B B A A (2Q's Am fills and
+    evicts, ARC hits both ghost lists), the first 3,000 keys related in
+    threes (PFCS prefetches), and 80,000 zipf accesses (alpha 0.5) over
+    30,000 keys."""
+    from repro_torch.core import Trace
+
+    b = GLOBAL_BLOCK
+    blocks = np.concatenate([np.arange(i * b, (i + 1) * b)
+                             for i in (0, 0, 1, 1, 0, 0)])
+    return [Trace(name="blocks", accesses=blocks,
+                  relationships=[(k, k + 1, k + 2)
+                                 for k in range(0, 3000, 3)],
+                  n_keys=2 * b),
+            _make_trace("zipf_trace", n_keys=30_000, n_accesses=80_000,
+                        alpha=0.5, seed=3)]
+
+
+def scan_counters(out: dict) -> list:
+    """A scan's counters per trace, in ``GLOBAL_COUNTS``' order."""
+    names = ("hits", "miss", "demand", "issued", "used", "true")
+    cols = [out[n].reshape(out[n].shape[0], -1).cpu() for n in names
+            if n in out]
+    return torch.cat(cols, dim=1).tolist()
+
+
+def oracle_counters(stats) -> list:
+    """A scalar oracle's ``AccessStats`` in ``GLOBAL_COUNTS``' order."""
+    out = [*stats.hits_per_level.values(), stats.misses,
+           stats.demand_accesses]
+    if stats.name == "PFCS":
+        out += [stats.prefetches_issued, stats.prefetches_used,
+                stats.prefetches_true]
+    return out
+
+
 def arc_swing_accesses(c: int, length: int = 200) -> np.ndarray:
     """Accesses that drive ARC's p (over ``c`` slots) to 0 and to ``c``
     and leave it at a value with a rounding history: loops over 2c keys
@@ -1963,12 +2040,18 @@ def pfcs_table_inputs(traces, caps, n_keys: int) -> tuple:
                          for tr in traces], DEVICE)
 
 
-def check_engine(kernel_name: str, args: tuple) -> dict:
-    """One engine scan against its plain version on the same inputs on
-    the card, every counter and the whole final state (exact, or raise);
-    the kernel's device time (the least of three runs, CUDA events), the
-    plain version's (host clock, synchronized), the slot words its scans
-    read and the bound (``engine_bound``)."""
+#: the placements every shared-memory batch of ``engine_check`` is also
+#: asked for (the other template instances of each kernel)
+OTHER_PLACEMENTS = ("keys global", "global")
+
+
+def check_engine(kernel_name: str, args: tuple, also=()) -> dict:
+    """One engine scan against its plain version on the same inputs, run
+    on the host's CPU: every counter and the whole final state (exact, or
+    raise); the scan again with its state placed as each of ``also`` asks,
+    each held to the same plain result; the kernel's device time (the
+    least of three runs, CUDA events), the plain version's host time, the
+    words its algorithm must read and the bound (``engine_bound``)."""
     from repro_torch.kernels import engine
 
     fname = {"engine_baseline": "baseline_scan",
@@ -1979,36 +2062,53 @@ def check_engine(kernel_name: str, args: tuple) -> dict:
         outs = [getattr(engine, fname)(*args) for _ in range(3)]
     finally:
         cap.close()
+    placed = {m: getattr(engine, fname)(*args, placement=m) for m in also}
     torch.cuda.synchronize()
+    host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
     t0 = time.perf_counter()
-    want = plain(*args)
-    torch.cuda.synchronize()
+    want = plain(*host)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bad = tree_diff(want, outs[0])
-    if bad:
-        raise AssertionError(f"{kernel_name} {args[1:2]}: kernel != plain "
-                             f"at {bad[:6]}")
+    for mode, out in [(None, outs[0]), *placed.items()]:
+        bad = tree_diff(want, out)
+        if bad:
+            where = mode or "its own placement"
+            raise AssertionError(f"{kernel_name} {args[1:2]} ({where}): "
+                                 f"kernel != plain at {bad[:6]}")
+        if mode and out["placement"] and out["placement"]["mode"] != mode:
+            raise AssertionError(f"{kernel_name}: asked for {mode!r}, ran "
+                                 f"{out['placement']}")
     best = min(cap.calls, key=lambda c: c["ms"])
     best.update(engine_bound(best))
     return {**best, "max_abs_err": 0, "plain_ms": plain_ms,
+            "also_exact_in": {m: o["placement"] for m, o in placed.items()},
             "out": outs[0]}
 
 
 def phase_engine_check(ctx: Context) -> dict:
-    """Both engine kernels against their plain versions on the card (the
-    step functions run as a Python loop over the trace): the check batch
-    (four traces of the port's generators, ragged) through every system
-    and PFCS's variants (a victim window wider than every level, no
-    prefetch, prefetch on every access); levels of capacity 1 (2Q holds
-    two keys); a trace that drives ARC's p to 0 and to c (p compared bit
-    for bit).  The check batch's times are the ``kernels`` line's."""
+    """Both engine kernels against their plain versions (the step
+    functions run as a Python loop over the trace on the host's CPU): the
+    check batch (four traces of the port's generators, ragged) through
+    every system and PFCS's variants (a victim window wider than every
+    level, no prefetch, prefetch on every access); levels of capacity 1
+    (2Q holds two keys); a trace that drives ARC's p to 0 and to c (p
+    compared bit for bit).  Each of these runs again with its state asked
+    into the two other placements (``OTHER_PLACEMENTS``), held to the same
+    plain result.  Then the placements that the sizes choose: a key space
+    and levels past shared memory against the plain loop, and a long batch
+    whose keys outnumber its 20,032 slots against the scalar oracles'
+    counters (``GLOBAL_COUNTS``).  The check batch's times are the
+    ``kernels`` line's."""
+    t0 = time.perf_counter()
+    if ctx.engine_builds:
+        ctx.engine_builds.finish()
+    waited_s = time.perf_counter() - t0
     caps = [c for _, c in CHECK_CAPS]
     traces = check_traces()
     acc, n_keys = batch_inputs(traces)
     lines, rows = [], {name: [] for name in ENGINE}
 
-    def record(label, kernel_name, args, timed=False):
-        r = check_engine(kernel_name, args)
+    def record(label, kernel_name, args, timed=False, also=OTHER_PLACEMENTS):
+        r = check_engine(kernel_name, args, also)
         out = r.pop("out")
         line = {"check": label, **{k: v for k, v in r.items()
                                    if k != "name"}}
@@ -2078,9 +2178,9 @@ def phase_engine_check(ctx: Context) -> dict:
     if p_end != path[-1]:
         raise AssertionError(f"arc p: kernel {p_end!r} != plain {path[-1]!r}")
 
-    # the state's placements: the batches above keep it in shared memory;
-    # a key space past shared memory leaves the per-key arrays in global
-    # memory, and levels past it every array
+    # the placements the sizes choose: the batches above keep the state in
+    # shared memory; a key space past shared memory leaves the per-key
+    # arrays in global memory, and levels past it every array
     placements = {"shared": lines[:]}
     few = check_traces(PLACEMENT_LENGTH)
     for mode, batch, levels in (("keys global", spread_traces(few),
@@ -2091,15 +2191,16 @@ def phase_engine_check(ctx: Context) -> dict:
         n_lines = len(lines)
         for policy in BASELINES:
             record(f"{policy} {k_p} keys {caps_p}, {mode}", "engine_baseline",
-                   (acc_p, policy, caps_p, k_p))
+                   (acc_p, policy, caps_p, k_p), also=())
         record(f"pfcs {k_p} keys {caps_p}, {mode}", "engine_pfcs",
-               (acc_p, caps_p, k_p, 4, 8, True, False, *tables_p))
+               (acc_p, caps_p, k_p, 4, 8, True, False, *tables_p), also=())
         placements[mode] = lines[n_lines:]
     for mode, ls in placements.items():
         got = {ln["placement"]["mode"] for ln in ls if ln["placement"]}
         if got - {mode}:
             raise AssertionError(f"engine_check: the {mode} batches ran "
                                  f"with their state {sorted(got)}")
+    long_batch = global_check()
 
     ctx.engine_check = {}
     for name, rs in rows.items():
@@ -2111,11 +2212,50 @@ def phase_engine_check(ctx: Context) -> dict:
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": b_ms, "bound_by": b_by}
+    asked = sum(len(ln["also_exact_in"]) for ln in placements["shared"])
     return {"checks": lines, "arc_p_range": [min(path), max(path)],
             "arc_p_end": p_end, "held_at_capacity_1": held,
             "check_batch": ctx.engine_check,
             "placements_checked": {m: len(ls) for m, ls in
-                                   placements.items()}}
+                                   placements.items()},
+            "placements_asked": asked, "global_batch": long_batch,
+            # how long this phase waited for the engine kernels' nvcc,
+            # started in the build phase
+            "engine_build_waited_s": waited_s}
+
+
+def global_check() -> dict:
+    """``global_traces`` through every system at ``GLOBAL_CAPS``, in the
+    placement the sizes choose (every array in global memory), each
+    trace's counters equal to ``GLOBAL_COUNTS``."""
+    from repro_torch.kernels import engine
+
+    traces = global_traces()
+    acc, n_keys = batch_inputs(traces)
+    caps = [c for _, c in GLOBAL_CAPS]
+    tables = pfcs_table_inputs(traces, GLOBAL_CAPS, n_keys)
+    out = {}
+    for system in BASELINES + ("pfcs",):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if system == "pfcs":
+            got = engine.pfcs_scan(acc, caps, n_keys, 4, 8, True, False,
+                                   *tables)
+        else:
+            got = engine.baseline_scan(acc, system, caps, n_keys)
+        counts = scan_counters(got)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if counts != GLOBAL_COUNTS[system]:
+            raise AssertionError(f"engine_check global batch {system}: "
+                                 f"{counts} != the oracles' "
+                                 f"{GLOBAL_COUNTS[system]}")
+        if got["placement"] and got["placement"]["mode"] != "global":
+            raise AssertionError(f"engine_check global batch {system}: ran "
+                                 f"{got['placement']}")
+        out[system] = {"wall_ms": wall_ms, "placement": got["placement"]}
+    return {"traces": [tr.name for tr in traces],
+            "accesses": [tr.length for tr in traces], "n_keys": n_keys,
+            "levels": caps, "systems": out}
 
 
 def mean_rows(rows: list) -> dict:
@@ -2136,6 +2276,39 @@ def pfcs_counters(st) -> tuple:
             st.prefetches_true)
 
 
+def table1_runs(engine_cap) -> dict:
+    """Each Table-1 workload's three traces (PFCS's tables built by
+    ``discover="kernel"``) through every system with ``simulate_batch``,
+    one engine launch each: ``{workload: (traces, tables, table build s,
+    {system: (stats, wall s, engine_cap's call)})}``."""
+    from repro_torch.core.engine import pfcs_tables, simulate_batch
+    from repro_torch.core.engine.batch import key_space
+
+    results = {}
+    for wname, (gen, kw) in TABLE1_WORKLOADS.items():
+        traces = [_make_trace(gen, seed=s, **kw)
+                  for s in range(TABLE1_TRIALS)]
+        n_keys = key_space(traces)
+        t0 = time.perf_counter()
+        tables = [pfcs_tables(tr, TABLE1_CAPS, discover="kernel",
+                              n_keys=n_keys, device=DEVICE)
+                  for tr in traces]
+        table_s = time.perf_counter() - t0
+        per = {}
+        for system in BASELINES + ("pfcs",):
+            n_calls = len(engine_cap.calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = simulate_batch(
+                traces, system, TABLE1_CAPS, device=DEVICE,
+                tables=tables if system == "pfcs" else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per[system] = (stats, wall, engine_cap.calls[n_calls])
+        results[wname] = (traces, tables, table_s, per)
+    return results
+
+
 def phase_table1(ctx: Context) -> dict:
     """The paper's Table 1 on the card at ``benchmarks/table1.py``'s
     configuration, unreduced: each workload's three trials (seeds 0-2)
@@ -2152,36 +2325,13 @@ def phase_table1(ctx: Context) -> dict:
     from repro_torch import kernels
     from repro_torch.core import (derive_table1_row, simulate_baseline,
                                   simulate_pfcs)
-    from repro_torch.core.engine import pfcs_tables, simulate_batch
-    from repro_torch.core.engine.batch import key_space
 
     systems = BASELINES + ("pfcs",)
     capture, engine_cap = Capture(), EngineCapture()
-    results, report = {}, {}
+    report = {}
     try:
         kernels.reset_launch_counts()
-        for wname, (gen, kw) in TABLE1_WORKLOADS.items():
-            traces = [_make_trace(gen, seed=s, **kw)
-                      for s in range(TABLE1_TRIALS)]
-            n_keys = key_space(traces)
-            t0 = time.perf_counter()
-            tables = [pfcs_tables(tr, TABLE1_CAPS, discover="kernel",
-                                  n_keys=n_keys, device=DEVICE)
-                      for tr in traces]
-            table_s = time.perf_counter() - t0
-            per = {}
-            for system in systems:
-                n_calls = len(engine_cap.calls)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                stats = simulate_batch(
-                    traces, system, TABLE1_CAPS, device=DEVICE,
-                    tables=tables if system == "pfcs" else None)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                call = engine_cap.calls[n_calls]
-                per[system] = (stats, wall, call)
-            results[wname] = (traces, tables, table_s, per)
+        results = table1_runs(engine_cap)
         launches = kernels.launch_counts()
     finally:
         engine_cap.close()
@@ -2331,16 +2481,92 @@ def report(ctx: Context) -> None:
                                  "count": torch.cuda.device_count()}})
 
 
-def main() -> int:
+def table1_times(tree: str) -> dict:
+    """``table1_runs`` twice with the port of ``tree`` (a directory
+    holding a ``src/repro_torch``): each (workload, system)'s engine
+    kernel ms, the least of its two launches (CUDA events around the
+    launch; a process's first launch of a kernel also loads it), its
+    seed-0 hits held to ``TABLE1_SEED0``."""
+    src = os.path.realpath(os.path.join(tree, "src"))
+    sys.path.insert(0, src)
+    import repro_torch
+
+    if not os.path.realpath(repro_torch.__file__).startswith(src + os.sep):
+        raise RuntimeError(f"imported {repro_torch.__file__}, not {tree}'s")
+    cap = EngineCapture()
+    try:
+        runs = [table1_runs(cap) for _ in range(2)]
+    finally:
+        cap.close()
+    ms = {}
+    for results in runs:
+        for wname, (_, _, _, per) in results.items():
+            for system, (stats, _, call) in per.items():
+                if (stats[0].hits, stats[0].demand_accesses) != \
+                        TABLE1_SEED0[wname][system]:
+                    raise AssertionError(f"{tree}: {wname} {system} seed-0 "
+                                         f"hits {stats[0].hits}")
+                key = f"{wname}/{system}"
+                ms[key] = min(ms.get(key, call["ms"]), call["ms"])
+    return ms
+
+
+def compare_engine(old: str, rounds: int) -> int:
+    """The engine kernels of the port of ``old`` (a directory holding its
+    ``src``, e.g. an older commit unpacked by ``git archive <commit> src``)
+    against this tree's over Table 1, ``rounds`` times in turns (old, new,
+    new, old: a drift of the card's clock falls on both), each run in a
+    process of its own that builds its tree's kernels there.  Prints each
+    run's kernel ms per (workload, system), then the card's name and power
+    limit and the median of each tree's runs."""
+    runs = {"old": [], "new": []}
+    for _ in range(rounds):
+        for label, tree in (("old", old), ("new", ROOT), ("new", ROOT),
+                            ("old", old)):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--table1-times", tree],
+                                 capture_output=True, text=True, cwd=ROOT)
+            if res.returncode:
+                sys.stderr.write(res.stdout + res.stderr)
+                return 1
+            ms = json.loads(res.stdout.strip().splitlines()[-1])
+            emit({"tree": label, "kernel_ms": ms})
+            runs[label].append(ms)
+    smi, _ = nvidia_smi()
+    print(smi, flush=True)
+    emit({"median_kernel_ms": {
+        label: {k: float(np.median([r[k] for r in rs])) for k in rs[0]}
+        for label, rs in runs.items()}})
+    return 0
+
+
+def main(argv=()) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                             "one NVIDIA card.")
+    ap.add_argument("--compare-engine", metavar="DIR",
+                    help="instead: time the Table-1 engine kernels of the "
+                         "port in DIR (holding its src) against this "
+                         "tree's, in turns")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--table1-times", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.table1_times:
+        emit(table1_times(os.path.abspath(args.table1_times)))
+        return 0
+    if args.compare_engine:
+        return compare_engine(os.path.abspath(args.compare_engine),
+                              args.rounds)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     phase = "start"
     t_start = time.perf_counter()
+    ctx = Context()
     try:
-        ctx = Context()
         for phase, fn in PHASES:
             t0 = time.perf_counter()
             out = fn(ctx)
@@ -2354,8 +2580,11 @@ def main() -> int:
         emit({"phase": phase, "error": f"{type(exc).__name__}: {exc}",
               "traceback": "".join(frames[-6:])})
         return 1
+    finally:
+        if ctx.engine_builds:
+            ctx.engine_builds.stop()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

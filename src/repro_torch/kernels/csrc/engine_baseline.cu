@@ -52,15 +52,17 @@
 // against the plain step functions and the reference's scalar oracles.
 //
 // C entry: pfcs_engine_baseline(acc, n, length, policy, cums, n_levels,
-//   total, s1, s2, s3, n_keys, state, state_words, offsets, n_offsets,
-//   placement, p_out, counters, visits, stream) ->
+//   total, s1, s2, s3, n_keys, state, state_words, kinds, offsets,
+//   n_offsets, placement, p_out, counters, visits, stream) ->
 //   cudaGetLastError().  acc is (n, length) int32 keys, -1 a padded (no-op)
 //   step; cums the levels' cumulative capacities (on the card); s1..s3 the
 //   policy's sizes (2Q: kin, kout, km; LIRS: capacity, llirs); offsets a
 //   host array of the n_offsets words at which each array starts in a
 //   trace's state_words region: baseline_layout's arrays, then the
-//   kernel's own (kernels/engine.py::baseline_arena, in kKinds' order);
-//   placement (host, 2 ints) receives the mode and the dynamic shared
+//   kernel's own (kernels/engine.py::baseline_arena), and kinds how each
+//   is placed (kernels/engine.py::baseline_kinds, plan_arena's letters);
+//   placement (host, 2 ints) holds the least shared mode the caller takes
+//   (0: the first that fits) and receives the mode and the dynamic shared
 //   bytes; counters (n, n_levels +
 //   3) int32: hits per tier (MEM last), misses, demand accesses; visits
 //   (n,) int64: the steps the LIR bottom's pointer walked; p_out (n,)
@@ -68,7 +70,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cstring>
 #include <type_traits>
 
 #include "engine_list.cuh"
@@ -89,15 +90,11 @@ constexpr unsigned char kPad = 0xFF;
 // shadow's boundary nodes, a chunk's tiers and hits
 constexpr int kMeta = (4 * (2 * kMaxLevels + 3) + 2 * kChunk + 15) / 16 * 16;
 
-// each array of a trace's state, in offsets' order (plan_arena's kinds):
-// baseline_layout's outputs, then the shadow's links, tiers and key map,
-// then the policy's own
-const char* const kKinds[5] = {
-    "SGSG" "sSK" "sK",
-    "SGSG" "sSK" "sK",
-    "SGSGSGSG" "sSK" "sssbbK",
-    "SGSGSGSGSG" "sSK" "sbbsbbsbbsbbK",
-    "SGKKGKGG" "sSK" "k"};
+// the arrays of a trace's state, each policy's: baseline_layout's
+// outputs, then the shadow's links, tiers and key map, then the policy's
+// own (kernels/engine.py::baseline_arena gives their offsets and
+// baseline_kinds their placement)
+constexpr int kArrays[5] = {9, 9, 17, 26, 12};
 __host__ __device__ constexpr int outputs(int p) {
   return p == kTwoQ ? 8 : p == kARC ? 10 : p == kLIRS ? 8 : 4;
 }
@@ -710,21 +707,22 @@ extern "C" int pfcs_engine_baseline(const void* acc, long long n,
                                     const void* cums, int n_levels, int total,
                                     int s1, int s2, int s3, int n_keys,
                                     void* state, long long state_words,
+                                    const char* kinds,
                                     const long long* offsets, int n_offsets,
                                     int* placement,
                                     void* p_out, void* counters, void* visits,
                                     void* stream) {
   if (n <= 0) return 0;
   if (n_levels < 1 || n_levels > kMaxLevels || policy < 0 || policy > 4 ||
-      n_offsets != static_cast<int>(std::strlen(kKinds[policy])))
+      n_offsets != kArrays[policy])
     return static_cast<int>(cudaErrorInvalidValue);
   const long long limit = shared_limit();
   if (limit < 0) return static_cast<int>(cudaGetLastError());
   Arena ar{};
   int mode = 2;
-  const int bytes = plan_arena(kKinds[policy], offsets, n_offsets,
-                               state_words, outputs(policy), limit, kMeta, &ar,
-                               &mode);
+  const int bytes = plan_arena(kinds, offsets, n_offsets, state_words,
+                               outputs(policy), limit, kMeta, placement[0],
+                               &ar, &mode);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   placement[0] = mode;
   placement[1] = bytes;

@@ -184,13 +184,15 @@ __device__ void copy_out(const Arena& a, int* region,
 // link of the slots (a word in the region, 16 bits in shared memory),
 // 'b' bitmap words of the slots.  Mode 0 puts the slot and key arrays in
 // shared memory, mode 1 the slot arrays only, mode 2 none; the first mode
-// that fits in ``cap`` bytes, beside the ``fixed`` bytes the kernel keeps
-// first for its own scalars, wins.  Returns the dynamic shared bytes, or
-// -1 when the layout is not the kernel's.
+// from ``least`` on that fits in ``cap`` bytes, beside the ``fixed`` bytes
+// the kernel keeps first for its own scalars, wins (``least`` > 0 asks for
+// a less shared placement than fits, to check the other template
+// instances).  Returns the dynamic shared bytes, or -1 when the layout is
+// not the kernel's.
 inline int plan_arena(const char* kinds, const long long* off, int n,
                       long long state_words, int n_out, long long cap,
-                      int fixed, Arena* a, int* mode) {
-  if (n > kMaxArrays || n_out > n) return -1;
+                      int fixed, int least, Arena* a, int* mode) {
+  if (n > kMaxArrays || n_out > n || least < 0 || least > 2) return -1;
   long long need[2] = {0, 0};       // slot, key bytes in shared memory
   bool fits16[2] = {true, true};
   for (int j = 0; j < n; ++j) {
@@ -211,6 +213,7 @@ inline int plan_arena(const char* kinds, const long long* off, int n,
   *mode = (fits16[0] && fits16[1] && fixed + need[0] + need[1] <= cap) ? 0
           : (fits16[0] && fixed + need[0] <= cap)                     ? 1
                                                                       : 2;
+  if (*mode < least) *mode = least;
   long long at = fixed;
   for (int j = 0; j < n; ++j) {
     const char k = kinds[j];

@@ -35,12 +35,13 @@
 //
 // C entry: pfcs_engine_pfcs(acc, n, length, caps, n_levels, n_keys,
 //   budget, bcols, window, always, targets, truth, degree, state,
-//   state_words, offsets, n_offsets, placement, counters,
+//   state_words, kinds, offsets, n_offsets, placement, counters,
 //   visits, stream) -> cudaGetLastError().  offsets is a host array of the
 //   words at which each array starts in a trace's state_words region:
 //   pfcs_layout's (each level's keys, t, pf, deg, then ``where``), then the
 //   kernel's own (kernels/engine.py::pfcs_arena: each level's links and
-//   bitmap, then the key -> slot map and the degree table's copy).  acc is
+//   bitmap, then the key -> slot map and the degree table's copy), kinds
+//   how each is placed (kernels/engine.py::pfcs_kinds).  acc is
 //   (n, length) int32 keys, -1 a padded step; caps (on the card) the
 //   level capacities; targets (n, K, bcols) int32, -1 padded; truth (n, K,
 //   bcols) uint8; degree (n, K) int32; budget the prefetch inserts per
@@ -363,7 +364,7 @@ extern "C" int pfcs_engine_pfcs(const void* acc, long long n, long long length,
                                 int budget, int bcols, int window, int always,
                                 const void* targets, const void* truth,
                                 const void* degree, void* state,
-                                long long state_words,
+                                long long state_words, const char* kinds,
                                 const long long* offsets, int n_offsets,
                                 int* placement,
                                 void* counters, void* visits, void* stream) {
@@ -371,19 +372,13 @@ extern "C" int pfcs_engine_pfcs(const void* acc, long long n, long long length,
   if (n_levels < 1 || n_levels > kMaxLevels || budget > bcols ||
       n_offsets != 4 * n_levels + 10)
     return static_cast<int>(cudaErrorInvalidValue);
-  // each level's keys, t, pf, deg (written out at the end); where; the
-  // slots' keys, flags, degrees and links and the bitmaps, numbered across
-  // levels; the key -> slot map and the degree table
-  char kinds[4 * kMaxLevels + 11] = {};
-  int at = 0;
-  for (int l = 0; l < 4 * n_levels; ++l) kinds[at++] = 'G';
-  for (const char* k = "KSSSLLbbKK"; *k; ++k) kinds[at++] = *k;
   const long long limit = shared_limit();
   if (limit < 0) return static_cast<int>(cudaGetLastError());
   Arena ar{};
   int mode = 2;
   const int bytes = plan_arena(kinds, offsets, n_offsets, state_words,
-                               4 * n_levels + 1, limit, 0, &ar, &mode);
+                               4 * n_levels + 1, limit, 0, placement[0], &ar,
+                               &mode);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   placement[0] = mode;
   placement[1] = bytes;

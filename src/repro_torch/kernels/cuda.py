@@ -32,8 +32,9 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence
 
 import torch
 
-__all__ = ["BUILD_DIR", "CudaKernel", "KERNELS", "NVCC_FLAGS", "build_all",
-           "build_dir", "launch_counts", "nvcc_path", "reset_launch_counts"]
+__all__ = ["BUILD_DIR", "Builds", "CudaKernel", "KERNELS", "NVCC_FLAGS",
+           "build_all", "build_dir", "launch_counts", "nvcc_path",
+           "reset_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -191,21 +192,41 @@ def _finish(builds: Iterable[Optional[_Build]]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
-def build_all(extra: Iterable["CudaKernel"] = ()) -> float:
-    """Build every kernel's library, and those of ``extra``, one ``nvcc``
-    per source started together; returns the seconds it took."""
-    t0 = time.perf_counter()
-    builds: List[Optional[_Build]] = []
-    try:
-        for k in [*KERNELS.values(), *extra]:
-            builds.append(k.start_build())
-        _finish(builds)
-    finally:
-        for b in builds:
+class Builds:
+    """``nvcc`` for each of ``kernels`` whose library is missing, started
+    together; ``finish`` waits for them, ``stop`` ends those still
+    running (a caller may do other work in between)."""
+
+    def __init__(self, kernels: Iterable["CudaKernel"]):
+        self.t0 = time.perf_counter()
+        self.builds: List[Optional[_Build]] = []
+        try:
+            for k in kernels:
+                self.builds.append(k.start_build())
+        except BaseException:
+            self.stop()
+            raise
+
+    def finish(self) -> float:
+        """Wait for every build (raise naming those that failed); returns
+        the seconds since they started."""
+        try:
+            _finish(self.builds)
+        finally:
+            self.stop()
+        return time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        for b in self.builds:
             if b is not None and b.proc.poll() is None:
                 b.proc.kill()
                 b.proc.wait()
-    return time.perf_counter() - t0
+
+
+def build_all(extra: Iterable["CudaKernel"] = ()) -> float:
+    """Build every kernel's library, and those of ``extra``, one ``nvcc``
+    per source started together; returns the seconds it took."""
+    return Builds([*KERNELS.values(), *extra]).finish()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -23,10 +23,13 @@ its state, both diagnostics (the plain version ``None``).
 A trace's region of the kernel's scratch holds those arrays, then the
 kernel's own (``baseline_arena`` / ``pfcs_arena``: the lists' links, the
 free-slot bitmaps, the per-key maps); the wrapper hands the kernel every
-array's offset.  The kernel keeps what it reads in shared memory where it
-fits and says where: ``{"mode": "shared" | "keys global" | "global",
-"shared_bytes": n}``, ``"keys global"`` when the per-key arrays do not fit
-beside the slots, ``"global"`` when the slots do not fit either.
+array's offset and how it is placed (``baseline_kinds`` / ``pfcs_kinds``).
+The kernel keeps what it reads in shared memory where it fits and says
+where: ``{"mode": "shared" | "keys global" | "global", "shared_bytes":
+n}``, ``"keys global"`` when the per-key arrays do not fit beside the
+slots, ``"global"`` when the slots do not fit either.  A caller may ask
+for less shared memory than fits (``placement=``), which checks the other
+placements' template instances on a small state.
 
 Stamps are int32 micro-op ticks: each access advances ``POLICY_TICKS``
 (baselines) or ``levels + budget`` (PFCS) of them, so both scans refuse a
@@ -49,7 +52,8 @@ from .cuda import CudaKernel
 
 __all__ = ["baseline_scan", "pfcs_scan", "baseline_scan_ref",
            "pfcs_scan_ref", "baseline_layout", "pfcs_layout",
-           "baseline_arena", "pfcs_arena", "ENGINE_BASELINE", "ENGINE_PFCS",
+           "baseline_arena", "pfcs_arena", "baseline_kinds", "pfcs_kinds",
+           "ENGINE_BASELINE", "ENGINE_PFCS",
            "POLICY_IDS", "MAX_LEVELS", "STAMP_SPACE"]
 
 _P = ctypes.c_void_p
@@ -59,11 +63,11 @@ _INT = ctypes.c_int
 ENGINE_BASELINE = CudaKernel(
     "engine_baseline", "engine_baseline.cu", "pfcs_engine_baseline",
     [_P, _I64, _I64, _INT, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _I64,
-     _P, _INT, _P, _P, _P, _P, _P])
+     ctypes.c_char_p, _P, _INT, _P, _P, _P, _P, _P])
 ENGINE_PFCS = CudaKernel(
     "engine_pfcs", "engine_pfcs.cu", "pfcs_engine_pfcs",
     [_P, _I64, _I64, _P, _INT, _INT, _INT, _INT, _INT, _INT, _P, _P, _P, _P,
-     _I64, _P, _INT, _P, _P, _P, _P])
+     _I64, ctypes.c_char_p, _P, _INT, _P, _P, _P, _P])
 
 #: the policy codes of ``engine_baseline.cu``
 POLICY_IDS = {"lru": 0, "fifo": 1, "2q": 2, "arc": 3, "lirs": 4}
@@ -79,82 +83,124 @@ def _placement(out: ctypes.Array) -> Dict:
     return {"mode": _MODES[out[0]], "shared_bytes": int(out[1])}
 
 
+def _least_mode(placement) -> int:
+    """The kernel's code for the least shared placement a caller takes."""
+    if placement is None:
+        return 0
+    if placement not in _MODES:
+        raise ValueError(f"unknown placement {placement!r}; expected one of "
+                         f"{_MODES}")
+    return _MODES.index(placement)
+
+
+# Each array of a trace's region comes with how the kernels place it
+# (``csrc/engine_list.cuh::plan_arena``): "S" / "K" an int32 array over the
+# slots / the keys, "G" one the kernel writes and never reads (it stays in
+# the region), "s" / "k" the links of a list over the slots / the keys, "L"
+# one link of the slots, "b" the words of a free-slot bitmap.
+
+def _baseline_outputs(policy: str, total: int, n_keys: int) -> List:
+    """``baseline_layout``'s arrays with their kinds."""
+    if policy in ("lru", "fifo"):
+        pol = [("keys", total, "S"),
+               ("t" if policy == "lru" else "ins", total, "G")]
+    elif policy == "2q":
+        kin, kout, km = twoq_sizes(total)
+        pol = [("a1k", kin, "S"), ("a1t", kin, "G"), ("aok", kout, "S"),
+               ("aot", kout, "G"), ("amk", km, "S"), ("amt", km, "G")]
+    elif policy == "arc":
+        pol = [(name + f, n, kind)
+               for name, n in (("t1", total), ("t2", total), ("b1", total),
+                               ("b2", 2 * total + 1))
+               for f, kind in (("k", "S"), ("t", "G"))]
+    elif policy == "lirs":
+        pol = [("status", n_keys, "K"), ("s_t", n_keys, "K"),
+               ("q_t", n_keys, "G"), ("res", n_keys, "K"),
+               ("n_lir", 1, "G"), ("n_res", 1, "G")]
+    else:
+        raise ValueError(f"unknown policy {policy!r}")
+    return ([(("shk",), total, "S"), (("sht",), total, "G")]
+            + [(("pol", name), n, kind) for name, n, kind in pol])
+
+
+def _bitmap(n: int, name: Tuple = ()) -> List:
+    """A free-slot bitmap of ``n`` slots: its two levels' words."""
+    lo = (n + 31) // 32
+    return [(name + ("lo",), lo, "b"), (name + ("hi",), (lo + 31) // 32, "b")]
+
+
+def _list(name: str, n: int, bitmap: bool = False, kind: str = "s") -> List:
+    """A list's links over ``n`` entries (each entry's next and previous
+    side by side: two int32 words in the region, which the kernel packs to
+    two 16-bit halves of one word in shared memory), and its free-slot
+    bitmap."""
+    return ([((name, "links"), 2 * n, kind)]
+            + (_bitmap(n, (name,)) if bitmap else []))
+
+
+def _baseline_own(policy: str, total: int, n_keys: int) -> List:
+    """``baseline_arena``'s arrays with their kinds."""
+    out = _list("sh", total) + [(("sh", "tier"), total, "S"),
+                                (("sh", "slot"), n_keys, "K")]
+    if policy in ("lru", "fifo"):
+        out += _list("lru", total)
+    elif policy == "2q":
+        kin, kout, km = twoq_sizes(total)
+        out += (_list("a1", kin) + _list("ao", kout) + _list("am", km)
+                + _bitmap(kout, ("freed",)))
+    elif policy == "arc":
+        for name, n in (("t1", total), ("t2", total), ("b1", total),
+                        ("b2", 2 * total + 1)):
+            out += _list(name, n, bitmap=True)
+    elif policy == "lirs":
+        return [(("arena",) + path, n, kind) for path, n, kind in
+                out + _list("q", n_keys, kind="k")]
+    else:
+        raise ValueError(f"unknown policy {policy!r}")
+    out += [(("where",), n_keys, "K")]
+    return [(("arena",) + path, n, kind) for path, n, kind in out]
+
+
+def _pfcs_outputs(caps: Sequence[int], n_keys: int) -> List:
+    """``pfcs_layout``'s arrays with their kinds: the levels, written out
+    at the end, stay in the region."""
+    return [(("levels", i, f), int(c) + 1, "G") for i, c in enumerate(caps)
+            for f in ("keys", "t", "pf", "deg")] + [(("where",), n_keys, "K")]
+
+
+def _pfcs_own(caps: Sequence[int], n_keys: int) -> List:
+    """``pfcs_arena``'s arrays with their kinds."""
+    slots = sum(int(c) + 1 for c in caps)
+    bitmaps = [_bitmap(int(c) + 1) for c in caps]
+    out = [((name,), slots, kind) for name, kind in
+           (("keys", "S"), ("pf", "S"), ("deg", "S"), ("nxt", "L"),
+            ("prv", "L"))]
+    out += [(("lo",), sum(b[0][1] for b in bitmaps), "b"),
+            (("hi",), sum(b[1][1] for b in bitmaps), "b"),
+            (("slot",), n_keys, "K"), (("degree",), n_keys, "K")]
+    return [(("arena",) + path, n, kind) for path, n, kind in out]
+
+
 def baseline_layout(policy: str, total: int,
                     n_keys: int) -> List[Tuple[Tuple[str, ...], int]]:
     """The int32 words of one trace's baseline state, in the kernel's
     order: ``[(path in the state dict, words), ...]``."""
-    pol: List[Tuple[str, int]]
-    if policy in ("lru", "fifo"):
-        pol = [("keys", total), ("t" if policy == "lru" else "ins", total)]
-    elif policy == "2q":
-        kin, kout, km = twoq_sizes(total)
-        pol = [("a1k", kin), ("a1t", kin), ("aok", kout), ("aot", kout),
-               ("amk", km), ("amt", km)]
-    elif policy == "arc":
-        pol = [(name, total) for name in ("t1k", "t1t", "t2k", "t2t", "b1k",
-                                          "b1t")]
-        pol += [("b2k", 2 * total + 1), ("b2t", 2 * total + 1)]
-    elif policy == "lirs":
-        pol = [(name, n_keys) for name in ("status", "s_t", "q_t", "res")]
-        pol += [("n_lir", 1), ("n_res", 1)]
-    else:
-        raise ValueError(f"unknown policy {policy!r}")
-    return ([(("shk",), total), (("sht",), total)]
-            + [(("pol", name), n) for name, n in pol])
+    return [(p, n) for p, n, _ in _baseline_outputs(policy, total, n_keys)]
 
 
 def pfcs_layout(caps: Sequence[int],
                 n_keys: int) -> List[Tuple[Tuple, int]]:
     """The int32 words of one trace's PFCS state, in the kernel's order."""
-    out: List[Tuple[Tuple, int]] = []
-    for i, c in enumerate(caps):
-        out += [(("levels", i, f), int(c) + 1)
-                for f in ("keys", "t", "pf", "deg")]
-    return out + [(("where",), n_keys)]
-
-
-def _bitmap(n: int) -> List[Tuple[str, int]]:
-    """A free-slot bitmap of ``n`` slots: its two levels' words."""
-    lo = (n + 31) // 32
-    return [("lo", lo), ("hi", (lo + 31) // 32)]
-
-
-def _list(name: str, n: int, bitmap: bool = False) -> List:
-    """A list's links over ``n`` entries (each entry's next and previous
-    side by side: two int32 words in the region, which the kernel packs to
-    two 16-bit halves of one word in shared memory), and its free-slot
-    bitmap."""
-    out = [((name, "links"), 2 * n)]
-    if bitmap:
-        out += [((name, f), w) for f, w in _bitmap(n)]
-    return out
+    return [(p, n) for p, n, _ in _pfcs_outputs(caps, n_keys)]
 
 
 def baseline_arena(policy: str, total: int,
                    n_keys: int) -> List[Tuple[Tuple[str, ...], int]]:
     """The baseline kernel's own arrays, after ``baseline_layout``'s, in
-    its order (``csrc/engine_baseline.cu``'s ``kKinds``): the shadow's
-    links, tiers and key -> slot map, then the policy's lists and key
-    map."""
-    out = _list("sh", total) + [(("sh", "tier"), total),
-                                (("sh", "slot"), n_keys)]
-    if policy in ("lru", "fifo"):
-        out += _list("lru", total) + [(("where",), n_keys)]
-    elif policy == "2q":
-        kin, kout, km = twoq_sizes(total)
-        out += _list("a1", kin) + _list("ao", kout) + _list("am", km)
-        out += [(("freed", f), w) for f, w in _bitmap(kout)]
-        out += [(("where",), n_keys)]
-    elif policy == "arc":
-        for name, n in (("t1", total), ("t2", total), ("b1", total),
-                        ("b2", 2 * total + 1)):
-            out += _list(name, n, bitmap=True)
-        out += [(("where",), n_keys)]
-    elif policy == "lirs":
-        out += _list("q", n_keys)
-    else:
-        raise ValueError(f"unknown policy {policy!r}")
-    return [(("arena",) + path, n) for path, n in out]
+    its order: the shadow's links, tiers and key -> slot map, then the
+    policy's lists (and 2Q's free set of ghost slots) and key map (LIRS:
+    its resident HIR queue over the keys)."""
+    return [(p, n) for p, n, _ in _baseline_own(policy, total, n_keys)]
 
 
 def pfcs_arena(caps: Sequence[int],
@@ -165,13 +211,22 @@ def pfcs_arena(caps: Sequence[int],
     one after the other, then the key -> slot map and a copy of the degree
     table.  The kernel writes the levels out in ``pfcs_layout`` at the
     end."""
-    slots = sum(int(c) + 1 for c in caps)
-    bitmaps = [_bitmap(int(c) + 1) for c in caps]
-    out = [((name,), slots) for name in ("keys", "pf", "deg", "nxt", "prv")]
-    out += [(("lo",), sum(b[0][1] for b in bitmaps)),
-            (("hi",), sum(b[1][1] for b in bitmaps)),
-            (("slot",), n_keys), (("degree",), n_keys)]
-    return [(("arena",) + path, n) for path, n in out]
+    return [(p, n) for p, n, _ in _pfcs_own(caps, n_keys)]
+
+
+def baseline_kinds(policy: str) -> str:
+    """How the baseline kernel places each array of ``baseline_layout``
+    and ``baseline_arena``, one letter an array (``plan_arena``'s)."""
+    return "".join(k for *_, k in _baseline_outputs(policy, 8, 1)
+                   + _baseline_own(policy, 8, 1))
+
+
+def pfcs_kinds(n_levels: int) -> str:
+    """How the PFCS kernel places each array of ``pfcs_layout`` and
+    ``pfcs_arena`` at ``n_levels`` levels."""
+    caps = [1] * n_levels
+    return "".join(k for *_, k in _pfcs_outputs(caps, 1)
+                   + _pfcs_own(caps, 1))
 
 
 def _offsets(layout) -> ctypes.Array:
@@ -257,14 +312,16 @@ def baseline_scan_ref(accesses: torch.Tensor, policy: str,
 
 
 def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
-                  n_keys: int) -> Dict:
+                  n_keys: int, placement: str = None) -> Dict:
     """Run a batch of traces through one baseline system: ``accesses`` is
     (B, T) int32, -1 padding; ``caps`` the level capacities; keys below
-    ``n_keys``.  Returns ``{"hits": (B, L+1) (MEM last), "miss": (B,),
-    "demand": (B,), "state": {...}, "visits": (B,) int64 or None,
-    "placement": {...} or None}``."""
+    ``n_keys``; ``placement`` the most shared placement the kernel may take
+    (``None``: the first that fits; the plain version has one).  Returns
+    ``{"hits": (B, L+1) (MEM last), "miss": (B,), "demand": (B,), "state":
+    {...}, "visits": (B,) int64 or None, "placement": {...} or None}``."""
     if policy not in POLICY_IDS:
         raise ValueError(f"unknown policy {policy!r}")
+    least = _least_mode(placement)
     caps = [int(c) for c in caps]
     _check_levels(caps)
     if accesses.dim() == 2:
@@ -278,6 +335,7 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
     layout = baseline_layout(policy, total, n_keys)
     region = layout + baseline_arena(policy, total, n_keys)
     offsets = _offsets(region)
+    kinds = baseline_kinds(policy).encode()
     words = sum(n for _, n in region)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     cums = torch.tensor(list(accumulate(caps)), dtype=torch.int32,
@@ -293,12 +351,12 @@ def baseline_scan(accesses: torch.Tensor, policy: str, caps: Sequence[int],
         sizes = (total, lirs_sizes(total)[1], 0)
     else:
         sizes = (0, 0, 0)
-    placed = (ctypes.c_int * 2)(-1, 0)
+    placed = (ctypes.c_int * 2)(least, 0)
     if batch:
         ENGINE_BASELINE.launch(dev, accesses.data_ptr(), batch, length,
                                POLICY_IDS[policy], cums.data_ptr(), n_levels,
                                total, *sizes, n_keys, scratch.data_ptr(),
-                               words, ctypes.addressof(offsets),
+                               words, kinds, ctypes.addressof(offsets),
                                len(offsets), placed, p_out.data_ptr(),
                                counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
@@ -341,15 +399,17 @@ def pfcs_scan_ref(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
 def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
               budget: int, window: int, enable_prefetch: bool, always: bool,
               targets: torch.Tensor, truth: torch.Tensor,
-              degree: torch.Tensor) -> Dict:
+              degree: torch.Tensor, placement: str = None) -> Dict:
     """Run a batch of traces through PFCS: ``accesses`` (B, T) int32, -1
     padding; the discovery tables (B, K, budget) int32 targets (-1 pad),
-    (B, K, budget) bool truth and (B, K) int32 degrees.  Returns
+    (B, K, budget) bool truth and (B, K) int32 degrees; ``placement`` as
+    ``baseline_scan``'s.  Returns
     ``{"hits": (B, L), "miss", "demand", "issued", "used", "true": (B,),
     "state": {...}, "visits": (B,) int64 or None, "placement": {...} or
     None}``."""
     caps = [int(c) for c in caps]
     _check_levels(caps)
+    least = _least_mode(placement)
     if accesses.dim() == 2:
         _check_stamp_space(accesses.shape[1], len(caps) + budget)
     _check_accesses(accesses, n_keys)
@@ -376,6 +436,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     layout = pfcs_layout(caps, n_keys)
     region = layout + pfcs_arena(caps, n_keys)
     offsets = _offsets(region)
+    kinds = pfcs_kinds(len(caps)).encode()
     words = sum(n for _, n in region)
     scratch = torch.empty((batch, words), dtype=torch.int32, device=dev)
     n_levels = len(caps)
@@ -385,7 +446,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
     caps_t = torch.tensor(caps, dtype=torch.int32, device=dev)
     targets, degree = targets.contiguous(), degree.contiguous()
     truth8 = truth.to(torch.uint8).contiguous()
-    placed = (ctypes.c_int * 2)(-1, 0)
+    placed = (ctypes.c_int * 2)(least, 0)
     if batch:
         ENGINE_PFCS.launch(dev, accesses.data_ptr(), batch, length,
                            caps_t.data_ptr(), n_levels, n_keys,
@@ -393,7 +454,7 @@ def pfcs_scan(accesses: torch.Tensor, caps: Sequence[int], n_keys: int,
                            int(window), int(bool(always)),
                            targets.data_ptr(), truth8.data_ptr(),
                            degree.data_ptr(), scratch.data_ptr(), words,
-                           ctypes.addressof(offsets), len(offsets),
+                           kinds, ctypes.addressof(offsets), len(offsets),
                            placed, counters.data_ptr(), visits.data_ptr())
     state = _unflatten(layout, scratch)
     levels = tuple(dict(state["levels"][i], pf=state["levels"][i]["pf"]

@@ -830,21 +830,17 @@ PFCS_STATIC = 48 * 8
 BASELINE_FIXED = (4 * (2 * 8 + 3) + 2 * 1024 + 15) // 16 * 16
 
 
-def baseline_kinds():
-    """``kKinds`` of ``engine_baseline.cu``, one string per policy."""
+def kernel_array_counts():
+    """``kArrays`` of ``engine_baseline.cu``: the arrays each policy's
+    kernel takes, in ``POLICY_IDS``' order."""
     src = (CSRC / "engine_baseline.cu").read_text()
-    block = src[src.index("const char* const kKinds[5] = {"):]
-    block = block[:block.index("};")]
-    return ["".join(re.findall(r'"([A-Za-z]*)"', ln))
-            for ln in block.splitlines()[1:]]
+    line = src[src.index("constexpr int kArrays[5] = {"):].split("\n")[0]
+    return [int(x) for x in re.findall(r"\d+", line.split("=")[1])]
 
 
-def pfcs_kinds(n_levels):
-    return "G" * 4 * n_levels + "KSSSLLbbKK"
-
-
-def plan(kinds, words, cap, fixed):
-    """``plan_arena`` in Python: ``(mode, dynamic shared bytes)``."""
+def plan(kinds, words, cap, fixed, least=0):
+    """``plan_arena`` in Python: ``(mode, dynamic shared bytes)``; the
+    first mode from ``least`` on that fits."""
     def r16(b):
         return -(-b // 16) * 16
 
@@ -856,8 +852,8 @@ def plan(kinds, words, cap, fixed):
         if link and w > (65534 if k == "L" else 2 * 65534):
             fits[part] = False
         need[part] += r16(2 * w if link else 4 * w)
-    mode = (0 if fits[0] and fits[1] and fixed + sum(need) <= cap else
-            1 if fits[0] and fixed + need[0] <= cap else 2)
+    mode = max(least, 0 if fits[0] and fits[1] and fixed + sum(need) <= cap
+               else 1 if fits[0] and fixed + need[0] <= cap else 2)
     at = fixed
     for k, w in zip(kinds, words):
         if k != "G" and (mode == 0 if k in "Kk" else mode <= 1):
@@ -874,8 +870,9 @@ def test_baseline_arena_is_the_kernels(policy):
     total, n_keys = 96, 50
     lay = (kengine.baseline_layout(policy, total, n_keys)
            + kengine.baseline_arena(policy, total, n_keys))
-    kinds = baseline_kinds()[kengine.POLICY_IDS[policy]]
+    kinds = kengine.baseline_kinds(policy)
     assert len(kinds) == len(lay)
+    assert kernel_array_counts()[kengine.POLICY_IDS[policy]] == len(lay)
     for k, (path, n) in zip(kinds, lay):
         name = path[-1]
         if k in "sk":
@@ -891,7 +888,7 @@ def test_baseline_arena_is_the_kernels(policy):
 
 def test_pfcs_arena_is_the_kernels():
     lay = kengine.pfcs_layout([3, 5], 40) + kengine.pfcs_arena([3, 5], 40)
-    kinds = pfcs_kinds(2)
+    kinds = kengine.pfcs_kinds(2)
     assert len(kinds) == len(lay)
     assert [p[-1] for k, (p, _) in zip(kinds, lay) if k == "G"] == [
         "keys", "t", "pf", "deg"] * 2
@@ -911,17 +908,40 @@ def test_table1_state_fits_in_shared_memory(workload, n_keys, table1_traces):
     for policy in POLICIES:
         lay = (kengine.baseline_layout(policy, total, n_keys)
                + kengine.baseline_arena(policy, total, n_keys))
-        got[policy] = plan(baseline_kinds()[kengine.POLICY_IDS[policy]],
+        got[policy] = plan(kengine.baseline_kinds(policy),
                            [n for _, n in lay], H100_SHARED, BASELINE_FIXED)
     lay = (kengine.pfcs_layout(TABLE1_CAPS, n_keys)
            + kengine.pfcs_arena(TABLE1_CAPS, n_keys))
-    got["pfcs"] = plan(pfcs_kinds(3), [n for _, n in lay],
+    got["pfcs"] = plan(kengine.pfcs_kinds(3), [n for _, n in lay],
                        H100_SHARED - PFCS_STATIC, 0)
     assert {m for m, _ in got.values()} == {0}
     if workload == "db_join":
         assert {s: b for s, (_, b) in got.items()} == {
             "lru": 95888, "fifo": 95888, "2q": 105536, "arc": 173296,
             "lirs": 146544, "pfcs": 107920}
+
+
+@pytest.mark.parametrize("system", POLICIES + ["pfcs"])
+def test_a_placement_asked_for_takes_less_shared_memory(system):
+    """``engine_check`` asks each shared-memory batch into the two other
+    placements (``placement=``): at the check levels and 400 keys each
+    request gets its mode, the per-key arrays leave shared memory and
+    then the slots, down to the kernel's own scalars."""
+    cs = chip_smoke()
+    levels = [c for _, c in cs.CHECK_CAPS]
+    if system == "pfcs":
+        lay = kengine.pfcs_layout(levels, 400) + kengine.pfcs_arena(levels,
+                                                                    400)
+        kinds, cap, fixed = kengine.pfcs_kinds(3), H100_SHARED - PFCS_STATIC, 0
+    else:
+        lay = (kengine.baseline_layout(system, sum(levels), 400)
+               + kengine.baseline_arena(system, sum(levels), 400))
+        kinds, cap, fixed = (kengine.baseline_kinds(system), H100_SHARED,
+                             BASELINE_FIXED)
+    words = [n for _, n in lay]
+    got = [plan(kinds, words, cap, fixed, least) for least in (0, 1, 2)]
+    assert [m for m, _ in got] == [0, 1, 2]
+    assert got[0][1] > got[1][1] > got[2][1] == fixed
 
 
 def test_placement_leaves_large_states_in_global_memory():
@@ -934,10 +954,10 @@ def test_placement_leaves_large_states_in_global_memory():
         for policy in POLICIES:
             lay = (kengine.baseline_layout(policy, sum(levels), n_keys)
                    + kengine.baseline_arena(policy, sum(levels), n_keys))
-            kinds = baseline_kinds()[kengine.POLICY_IDS[policy]]
+            kinds = kengine.baseline_kinds(policy)
             assert plan(kinds, [n for _, n in lay], H100_SHARED,
                         BASELINE_FIXED)[0] == mode, policy
         lay = (kengine.pfcs_layout(levels, n_keys)
                + kengine.pfcs_arena(levels, n_keys))
-        assert plan(pfcs_kinds(3), [n for _, n in lay],
+        assert plan(kengine.pfcs_kinds(3), [n for _, n in lay],
                     H100_SHARED - PFCS_STATIC, 0)[0] == mode

@@ -178,3 +178,20 @@ def test_table1_pfcs_counters_are_the_reference_oracles(workload):
                      st.demand_accesses, st.prefetches_issued,
                      st.prefetches_used, st.prefetches_true))
     assert cs.TABLE1_PFCS[workload] == want
+
+
+@pytest.mark.parametrize("system", ["lru", "fifo", "2q", "arc", "lirs",
+                                    "pfcs"])
+def test_global_counts_are_the_reference_oracles(system):
+    """``chip_smoke.py``'s ``GLOBAL_COUNTS``, which ``engine_check`` holds
+    its long batch (every array in global memory, more keys than slots) to,
+    are the reference's scalar oracles on the same traces."""
+    cs = chip_smoke()
+    want = []
+    for tr in cs.global_traces():
+        ref = R.Trace(tr.name, np.asarray(tr.accesses), tr.relationships,
+                      tr.n_keys)
+        st = (R.simulate_pfcs(ref, cs.GLOBAL_CAPS) if system == "pfcs"
+              else R.simulate_baseline(system, ref, cs.GLOBAL_CAPS))
+        want.append(cs.oracle_counters(st))
+    assert cs.GLOBAL_COUNTS[system] == want

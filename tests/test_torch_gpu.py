@@ -538,19 +538,20 @@ def test_cuda_engine_refuses_a_layout_it_does_not_know(cuda_device):
 
     arc = engine._offsets(engine.baseline_layout("arc", 8, 4))
     two = engine._offsets(engine.pfcs_layout([4, 8], 4))
-    placed = (ctypes.c_int * 2)(-1, 0)
+    placed = (ctypes.c_int * 2)(0, -1)
     before = launch_counts()
     with pytest.raises(RuntimeError, match="engine_baseline"):
         engine.ENGINE_BASELINE.launch(
             cuda_device, 0, 1, 1, engine.POLICY_IDS["lru"], 0, 1, 8, 0, 0,
-            0, 4, 0, 32, ctypes.addressof(arc), len(arc), -1, placed, 0, 0,
-            0)
+            0, 4, 0, 32, engine.baseline_kinds("arc")[:len(arc)].encode(),
+            ctypes.addressof(arc), len(arc), placed, 0, 0, 0)
     with pytest.raises(RuntimeError, match="engine_pfcs"):
         engine.ENGINE_PFCS.launch(
             cuda_device, 0, 1, 1, 0, 1, 4, 4, 4, 8, 0, 0, 0, 0, 0, 32,
-            ctypes.addressof(two), len(two), -1, placed, 0, 0)
+            engine.pfcs_kinds(2)[:len(two)].encode(), ctypes.addressof(two),
+            len(two), placed, 0, 0)
     assert launch_counts() == before
-    assert list(placed) == [-1, 0]
+    assert list(placed) == [0, -1]
 
 
 @pytest.mark.gpu
@@ -559,7 +560,9 @@ def test_cuda_engine_state_placements(cuda_device, system):
     """Each engine kernel equals its plain loop with its state in shared
     memory (the check batch), with the per-key arrays in global memory (a
     key space past shared memory) and with every array in global memory
-    (levels past shared memory), and says where it kept it."""
+    (levels past shared memory), and says where it kept it; on the check
+    batch at its full length (every policy evicting at capacity 96) each
+    placement asked for equals the same plain loop."""
     from repro_torch.kernels import engine
 
     cs = chip_smoke()
@@ -580,4 +583,19 @@ def test_cuda_engine_state_placements(cuda_device, system):
             plain = engine.baseline_scan_ref(*args)
         torch.cuda.synchronize()
         assert cs.tree_diff(plain, kern) == []
+        assert kern["placement"]["mode"] == mode
+    traces = cs.check_traces()
+    caps = [c for _, c in cs.CHECK_CAPS]
+    acc, n_keys = cs.batch_inputs(traces)
+    if system == "pfcs":
+        args = (acc, caps, n_keys, 4, 8, True, False,
+                *cs.pfcs_table_inputs(traces, cs.CHECK_CAPS, n_keys))
+        scan, plain = engine.pfcs_scan, engine.pfcs_scan_ref(*args)
+    else:
+        args = (acc, system, caps, n_keys)
+        scan, plain = engine.baseline_scan, engine.baseline_scan_ref(*args)
+    for mode in ("shared", "keys global", "global"):
+        kern = scan(*args, placement=mode)
+        torch.cuda.synchronize()
+        assert cs.tree_diff(plain, kern) == [], mode
         assert kern["placement"]["mode"] == mode

@@ -663,19 +663,40 @@ def _cpu_smoke(monkeypatch):
 
 def test_chip_smoke_engine_check_on_cpu(monkeypatch):
     """``engine_check`` on the CPU at 120-access traces: every check runs
-    (the plain version on both sides), 2Q holds two keys at capacity 1
-    and every other policy one, the swing trace drives ARC's p to 0 and
-    to c, every system runs on the placement batches (a key space of
-    60,000, and levels of 20,000 slots), and the check batch's times
-    feed the ``kernels`` line."""
+    (the plain version on both sides), each shared-memory batch also in
+    the two other placements, 2Q holds two keys at capacity 1 and every
+    other policy one, the swing trace drives ARC's p to 0 and to c, every
+    system runs on the placement batches (a key space of 60,000, and
+    levels of 20,000 slots) and on the long batch (here cut short, its
+    counters those of the port's scalar oracles), whose counters must
+    equal ``GLOBAL_COUNTS``, and the check batch's times feed the
+    ``kernels`` line."""
     chip_smoke = _cpu_smoke(monkeypatch)
+    from repro_torch.core import simulate_baseline, simulate_pfcs
+
     monkeypatch.setattr(chip_smoke, "CHECK_LENGTH", 120)
     monkeypatch.setattr(chip_smoke, "PLACEMENT_LENGTH", 40)
+    short = chip_smoke.check_traces(90)[:2]
+    monkeypatch.setattr(chip_smoke, "global_traces", lambda: short)
+    counts = {s: [chip_smoke.oracle_counters(
+        simulate_baseline(s, tr, chip_smoke.GLOBAL_CAPS)) for tr in short]
+        for s in chip_smoke.BASELINES}
+    counts["pfcs"] = [chip_smoke.oracle_counters(
+        simulate_pfcs(tr, chip_smoke.GLOBAL_CAPS)) for tr in short]
+    monkeypatch.setattr(chip_smoke, "GLOBAL_COUNTS", counts)
     ctx = chip_smoke.Context()
     out = chip_smoke.phase_engine_check(ctx)
     assert len(out["checks"]) == 28
     assert out["placements_checked"] == {"shared": 16, "keys global": 6,
                                          "global": 6}
+    assert out["placements_asked"] == 32
+    assert all(list(c["also_exact_in"]) == ["keys global", "global"]
+               for c in out["checks"][:16])
+    assert list(out["global_batch"]["systems"]) == list(
+        chip_smoke.BASELINES) + ["pfcs"]
+    counts["lirs"] = [[*counts["lirs"][0][:-1], 0], counts["lirs"][1]]
+    with pytest.raises(AssertionError, match="global batch lirs"):
+        chip_smoke.global_check()
     wide = [c for c in out["checks"] if "keys global" in c["check"]]
     assert all(" 60000 keys" in c["check"] for c in wide)
     deep = [c for c in out["checks"] if c["check"].endswith(", global")]
@@ -781,6 +802,35 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
     pfcs["hft"][1] = (hits, *rest[:-1], rest[-1] + 1)
     with pytest.raises(AssertionError, match="hft pfcs: counters"):
         chip_smoke.phase_table1(chip_smoke.Context())
+
+
+def test_chip_smoke_table1_times_on_cpu(monkeypatch):
+    """``--compare-engine``'s worker on the CPU with the workloads cut
+    small: this tree's port, each (workload, system) the least of two
+    launches, its seed-0 hits held to ``TABLE1_SEED0`` (one off fails)."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    small = {"hft": ("hft_trace", dict(n_instruments=200, n_corr_groups=30,
+                                       n_events=300))}
+    monkeypatch.setattr(chip_smoke, "TABLE1_WORKLOADS", small)
+    monkeypatch.setattr(chip_smoke, "TABLE1_TRIALS", 1)
+    monkeypatch.setattr(chip_smoke, "TABLE1_CAPS",
+                        (("L1", 8), ("L2", 16), ("L3", 64)))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    from repro_torch.core import simulate_baseline, simulate_pfcs
+
+    tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
+    seed0 = {s: simulate_baseline(s, tr, chip_smoke.TABLE1_CAPS)
+             for s in chip_smoke.BASELINES}
+    seed0["pfcs"] = simulate_pfcs(tr, chip_smoke.TABLE1_CAPS)
+    seed0 = {"hft": {s: (st.hits, st.demand_accesses)
+                     for s, st in seed0.items()}}
+    monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", seed0)
+    ms = chip_smoke.table1_times(chip_smoke.ROOT)
+    assert sorted(ms) == sorted(f"hft/{s}" for s in
+                                chip_smoke.BASELINES + ("pfcs",))
+    seed0["hft"]["arc"] = (seed0["hft"]["arc"][0] + 1, 300)
+    with pytest.raises(AssertionError, match="hft arc seed-0 hits"):
+        chip_smoke.table1_times(chip_smoke.ROOT)
 
 
 def test_chip_smoke_engine_work_counts_the_algorithm(monkeypatch):
