@@ -6,10 +6,12 @@ Run from the root of a checkout, with no arguments:
 
 It puts ``<root>/src`` on ``sys.path`` itself, builds the port's eight
 CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process
-per source, started together), and drives the port's serving path, its
-wide (multi-limb) path and its Table-1 trace engine on the card in
-phases, each printing one JSON line with its seconds (the sharded runs
-also report where their wall time went, ``sharded_time_split``):
+per source, started together), and drives the port's serving path
+(with its elastic cache, its MoE expert tier and its observability
+layer), its wide (multi-limb) path and its Table-1 trace engine on the
+card in phases, each printing one JSON line with its seconds (the sharded
+and elastic runs also report where their wall time went,
+``sharded_time_split``):
 
   device         the card, the torch and CUDA versions, the interpreter,
                  the ``nvcc`` found, the build directory, and
@@ -51,11 +53,38 @@ also report where their wall time went, ``sharded_time_split``):
                  requests) through ``SlotMachine`` / ``SlotOracle``
                  against ``BENCH_case_batching.json``, and through
                  ``kv="sharded"`` with the same counters;
-  batching_full  ``case_batching``'s full configuration (4000 requests),
+  batching_full  ``case_batching``'s full configuration with its 4000
+                 requests cut to ``BATCHING_FULL_REQUESTS``,
                  ``kv="sharded"`` against ``kv="vec"``;
   launcher       ``repro_torch.launch.serve --null-model --kv sharded``,
                  each kernel held against its plain version on the
                  inputs that run gave it;
+  elastic        ``repro_torch.cases.case_elastic``: its smoke
+                 configuration against ``BENCH_case_elastic.json``, its
+                 full one (192 requests, 64 slots, a 2 <-> 4 resize storm,
+                 periodic kills and a deferred one; the case asserts that
+                 tokens, counters, LRU order and prefetch log equal the
+                 uninterrupted scalar oracle's) against ``ELASTIC_FULL``;
+                 every refresh and recovery runs the flat mask, gcd and
+                 factorization, each held against its plain version at
+                 every shape and timed at the full run's; the recovery
+                 latency and the refresh's time split;
+  moe            ``repro_torch.cases.case_moe``: smoke against
+                 ``BENCH_case_moe.json``, full (4096 experts, 1000 x 8
+                 router sets, synthetic router) against ``MOE_FULL``, then
+                 the full schedule through
+                 ``VectorizedExpertCache(discover="kernel")``, equal to
+                 the incremental run on counters and prefetch log, its
+                 flat mask and factorization held against their plain
+                 versions;
+  obs            the observability layer: ``SlotMachine`` and
+                 ``SlotOracle`` on ``tests/test_obs.py``'s golden spec
+                 with ``kv="sharded"`` and ``"elastic"``, event streams
+                 identical to each other and to the plain versions' run
+                 (``trace_diff``), the kernel ledger's calls equal to the
+                 launch counters, placement unchanged by a zero-capacity
+                 or a live tracer, and the launcher with ``--kv elastic
+                 --trace`` (its export converted by ``tools/trace_view.py``);
   scale          ``case_scale`` at its published size (1M elements, 10,000
                  chains 100 deep, 1024-bit chunks: 32 limbs) through
                  ``repro_torch.cases``, against every deterministic key of
@@ -267,6 +296,30 @@ TABLE1_PFCS = {
 #: ``simulate_pfcs`` on the card's host (0.5 s of host Python on hft,
 #: 1.9-2.0 s each on the other two)
 TABLE1_PFCS_ORACLE = ("hft",)
+#: ``case_elastic``'s counters at its full configuration (192 requests, 64
+#: slots, 128 HBM pages, page size 8, the 2 <-> 4 resize storm, periodic
+#: kills and one deferred kill), from the reference's own case
+#: (``tests/test_torch_cases.py`` holds them to it)
+ELASTIC_FULL = dict(n_resizes=16, n_recoveries=13, moved_blocks=12_727,
+                    migrated_bytes=101_816, full_rebuild_bytes=222_872,
+                    refactorized=8_444, rows_rebuilt=9_027,
+                    hbm_hit_rate=0.6666666666666666,
+                    prefetch_hit_rate=0.6666666666666666)
+#: ``case_moe``'s counters at its full configuration with the synthetic
+#: router (4096 experts, 256 hot, 64 HBM slots, top-8, 1000 x 8 router
+#: sets), from the reference's own case (``tests/test_torch_cases.py``)
+MOE_FULL = {
+    "pfcs_vec": dict(hbm_hit_rate=0.81759375, demand_misses=11_674,
+                     prefetch_precision=1.0, registry_scans=0),
+    "pfcs_scalar": dict(hbm_hit_rate=0.81759375, demand_misses=11_674,
+                        prefetch_precision=1.0, registry_scans=64_000),
+    "lru": dict(hbm_hit_rate=0.240203125, demand_misses=48_627,
+                prefetch_precision=0.0, registry_scans=0),
+    "engine_loadgen": dict(completed=96, expert_hit_rate=0.6848958333333334,
+                           expert_misses=1_936,
+                           prefetch_precision=0.1797877505722411,
+                           registry_scans=0),
+}
 #: ``engine_check``'s level capacities (those of ``tests/test_engine.py``)
 #: and trace lengths: the check batch, the PFCS variants' batch and the
 #: capacity-1 batch
@@ -302,6 +355,13 @@ GLOBAL_COUNTS = {
              [47, 185, 50680, 29088, 80000, 0, 0, 0]],
 }
 
+#: ``batching_full``'s request count: ``case_batching``'s full
+#: configuration has 4000; its depth is cut to this many (the same
+#: recipe, slots, HBM pages and prefill budget) so that the script, which
+#: grew by the elastic, MoE and observability paths, stays inside its
+#: time limit (the sharded run's refresh is host Python that grows with
+#: the registry: 30.1 s at 4000 requests on the H100)
+BATCHING_FULL_REQUESTS = 2000
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
 #: ``case_scale``'s published size (``benchmarks/cases.py``)
@@ -890,26 +950,31 @@ class Capture:
 
 class Timers:
     """Host seconds spent inside the sharded registry refresh during a
-    run: the whole table rebuild (``refresh_s``) and, within it, the calls
-    that upload to the card, launch the kernels and read the results back
-    (``kernel_calls_s``: the per-shard scan with its mask and gcd
-    kernels, flat or limb, and the squarefree decode; neither calls the
-    other), and the
-    kernel launches made inside those calls (``kernel_calls_launches``).
-    What remains of the refresh is host Python; what remains of the run
-    is the tick loop."""
+    run: the whole table rebuild (``refresh_s``; for the elastic cache its
+    refresh and its shard recoveries, each counted once where one runs
+    inside the other) and, within it, the calls that upload to the card,
+    launch the kernels and read the results back (``kernel_calls_s``: the
+    per-shard scan with its mask and gcd kernels, flat or limb, and the
+    squarefree decode, also the recovery's; neither calls the other), and
+    the kernel launches made inside those calls
+    (``kernel_calls_launches``).  What remains of the refresh is host
+    Python; what remains of the run is the tick loop."""
 
     def __init__(self):
         from repro_torch import kernels
         from repro_torch.core.engine import shard
         from repro_torch.kernels import ops
+        from repro_torch.serving.elastic import ElasticShardedPagedKVCache
         from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
 
         self.seconds = {"refresh_s": 0.0, "kernel_calls_s": 0.0,
                         "kernel_calls_launches": 0}
         self._launches = lambda: sum(kernels.launch_counts().values())
+        self._depth = dict.fromkeys(self.seconds, 0)
         self._undo = []
         self._wrap(ShardedPagedKVCache, "refresh_tables", "refresh_s")
+        self._wrap(ElasticShardedPagedKVCache, "refresh_tables", "refresh_s")
+        self._wrap(ElasticShardedPagedKVCache, "recover_shard", "refresh_s")
         self._wrap(shard, "_scan_sharded", "kernel_calls_s")
         self._wrap(shard, "_scan_sharded_limbs", "kernel_calls_s")
         self._wrap(ops, "factorize_batch_exact", "kernel_calls_s")
@@ -918,10 +983,14 @@ class Timers:
         orig = getattr(owner, name)
 
         def wrapped(*args, **kw):
+            if self._depth[key]:               # inside a timed call already
+                return orig(*args, **kw)
+            self._depth[key] += 1
             n0, t0 = self._launches(), time.perf_counter()
             try:
                 return orig(*args, **kw)
             finally:
+                self._depth[key] -= 1
                 self.seconds[key] += time.perf_counter() - t0
                 if key == "kernel_calls_s":
                     self.seconds["kernel_calls_launches"] += (
@@ -1090,124 +1159,6 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
 # --------------------------------------------------------------------------- #
 # serving                                                                     #
 # --------------------------------------------------------------------------- #
-
-def run_serving(kv: str, budget: int, smoke: bool, n_shards: int = 2,
-                max_bits: int = 62):
-    """``benchmarks/cases.py::case_serving``'s engine run, on the card:
-    ``(report, trail)``, the trail holding the parity counters, every
-    touch's tier and the prefetch log."""
-    from repro_torch.serving.engine import ServingEngine
-
-    if smoke:
-        n_req, max_batch, max_new = 48, 16, 8
-        hbm, shared_tok, window = 24, 64, 2
-    else:
-        n_req, max_batch, max_new = 256, 128, 32
-        hbm, shared_tok, window = 384, 128, 4
-    rng = np.random.default_rng(0)
-    eng = ServingEngine(None, None, max_batch=max_batch, page_size=16,
-                        hbm_pages=hbm, kv=kv, prefetch_budget=budget,
-                        reread_window=window, shards=n_shards,
-                        max_bits=max_bits, device=DEVICE)
-    tiers, record_s = [], [0.0]
-
-    def record(items, touch=eng.pages.touch_batch):
-        out = touch(items)
-        t = time.perf_counter()
-        tiers.extend(out)
-        record_s[0] += time.perf_counter() - t
-        return out
-
-    eng.pages.touch_batch = record
-    groups = [list(rng.integers(0, 30_000, size=shared_tok))
-              for _ in range(max(1, n_req // 8))]
-    for r in range(n_req):
-        tail = list(rng.integers(0, 30_000, size=int(rng.integers(48, 129))))
-        eng.submit(groups[r % len(groups)] + tail, max_new_tokens=max_new)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run_until_idle()
-    torch.cuda.synchronize()
-    # the wall leaves out the tier recording (reported on its own)
-    wall = time.perf_counter() - t0 - record_s[0]
-    st = eng.pages.stats
-    out = {"kv": kv, "max_bits": max_bits, "completed": len(done),
-           "wall_s": wall, "tier_record_s": record_s[0],
-           "tok_per_s": sum(len(r.generated) for r in done) / wall,
-           "peak_concurrency": eng.peak_live,
-           "hbm_hit_rate": st.hbm_hit_rate,
-           "prefetch_hit_rate": st.prefetch_hit_rate,
-           "registry_scans": st.registry_scans,
-           "bulk_refreshes": getattr(eng.pages, "bulk_refreshes", None),
-           "parity": list(st.parity_tuple())}
-    if kv == "sharded":
-        scan = eng.pages.last_scan
-        out.update(shards=n_shards,
-                   local_composites=list(scan.local_composites),
-                   cross_composites=scan.cross_composites,
-                   gcd_pairs=scan.gcd_pairs,
-                   shard_agg_parity=list(
-                       eng.pages.aggregate_shard_stats().parity_tuple()))
-    trail = {"parity": st.parity_tuple(), "tiers": tiers,
-             "prefetch_log": list(eng.pages.prefetch_log)}
-    return out, trail
-
-
-def batching_trace(smoke: bool):
-    """``benchmarks/cases.py::case_batching``'s arrival trace and engine
-    sizes: a 60% burst front plus a Poisson tail, 32-token shared
-    prefixes, ragged tails and decode demands."""
-    from repro_torch.serving.slots import poisson_arrival_ticks
-
-    if smoke:
-        n_req, max_batch, rate, hbm, prefill_tok = 1200, 64, 24.0, 96, 256
-    else:
-        n_req, max_batch, rate, hbm, prefill_tok = 4000, 128, 48.0, 256, 1024
-    rng = np.random.default_rng(0)
-    ticks = poisson_arrival_ticks(n_req, rate=rate, seed=0, burst_frac=0.6,
-                                  silence_ticks=2)
-    groups = [list(rng.integers(0, 30_000, size=48))
-              for _ in range(max(1, n_req // 64))]
-    arrivals = []
-    for i, t in enumerate(ticks):
-        tail = list(rng.integers(0, 30_000, size=int(rng.integers(8, 33))))
-        arrivals.append((int(t), groups[i % len(groups)][:32] + tail,
-                         int(rng.integers(4, 9))))
-    return arrivals, dict(max_batch=max_batch, hbm_pages=hbm,
-                          prefill_tokens=prefill_tok)
-
-
-def run_batching(arrivals, sizes, config: str, kv: str = "vec",
-                 max_bits: int = 62):
-    """One ``case_batching`` engine on the card: ``config`` is a key of
-    ``BENCH_case_batching.json``."""
-    from repro_torch.serving.slots import SlotMachine, SlotOracle
-
-    cls, policy, budget, wait = {
-        "slot_vec": (SlotMachine, "continuous", 4, 6),
-        "slot_oracle": (SlotOracle, "continuous", 4, 6),
-        "lockstep": (SlotMachine, "lockstep", 4, None),
-        "lru": (SlotMachine, "continuous", 0, 6)}[config]
-    eng = cls(page_size=16, kv=kv, prefetch_budget=budget, reread_window=2,
-              policy=policy, preempt_wait=wait, shards=2, max_bits=max_bits,
-              device=DEVICE, **sizes)
-    for t, prompt, new in arrivals:
-        eng.submit(prompt, max_new_tokens=new, arrival=t)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run_until_idle(max_ticks=1_000_000)
-    torch.cuda.synchronize()
-    rep = eng.latency_report()
-    rep.update(wall_s=time.perf_counter() - t0,
-               hbm_hit_rate=eng.pages.stats.hbm_hit_rate,
-               prefetch_hit_rate=eng.pages.stats.prefetch_hit_rate)
-    trail = {"parity": eng.pages.stats.parity_tuple(),
-             "prefetch_log": list(eng.pages.prefetch_log),
-             "tier_log": eng.tier_log,
-             "timings": [(r.first_tick, r.done_tick, r.preemptions)
-                         for r in eng.requests]}
-    return rep, trail
-
 
 def bench_failures(bench_file: str, fresh: dict):
     """The deterministic keys of a checked-in ``BENCH_*.json`` that
@@ -1392,12 +1343,14 @@ def phase_kernel_check(ctx: Context) -> dict:
 
 
 def phase_serving_full(ctx: Context) -> dict:
+    from repro_torch.cases import serving_run
+
     (vec, ctx.serving_trail), (scalar, _) = (
-        run_serving("vec", 4, smoke=False),
-        run_serving("scalar", 4, smoke=False))
+        serving_run("vec", 4, smoke=False, device=DEVICE),
+        serving_run("scalar", 4, smoke=False, device=DEVICE))
     full = {"vec": vec, "scalar": scalar}
     (full["sharded"], _), ctx.launches, cap, seconds = traced(
-        run_serving, "sharded", 4, smoke=False)
+        serving_run, "sharded", 4, smoke=False, device=DEVICE)
     sh = full["sharded"]
     emit({"phase": "serving_full_runs", "launches": ctx.launches, **full})
     if not (full["vec"]["parity"] == full["scalar"]["parity"]
@@ -1421,13 +1374,12 @@ def phase_serving_full(ctx: Context) -> dict:
 
 
 def phase_serving_smoke(ctx: Context) -> dict:
-    runs = {"pfcs_vec": run_serving("vec", 4, smoke=True)[0],
-            "pfcs_scalar": run_serving("scalar", 4, smoke=True)[0],
-            "lru": run_serving("vec", 0, smoke=True)[0],
-            "pfcs_shard2": run_serving("sharded", 4, smoke=True)[0]}
-    fresh = {key: {cfg: r[key] for cfg, r in runs.items()}
-             for key in ("hbm_hit_rate", "prefetch_hit_rate",
-                         "registry_scans", "tok_per_s")}
+    """``repro_torch.cases.case_serving`` at its smoke configuration (its
+    own asserts) against ``BENCH_case_serving.json``."""
+    from repro_torch.cases import bench_payload, case_serving
+
+    fresh = bench_payload("case_serving",
+                          case_serving(smoke=True, device=DEVICE))
     failures = bench_failures("BENCH_case_serving.json", fresh)
     if failures:
         raise AssertionError("; ".join(failures))
@@ -1440,11 +1392,14 @@ def sharded_batching(arrivals, sizes, vec, vec_trail, label: str,
     ``max_bits``: its counters and logs must equal (narrow) ``kv="vec"``'s,
     every kernel in ``required`` must launch, and each kernel it launched
     is held against its plain version on every shape this run gave it."""
+    from repro_torch.cases import batching_run
+
     (sharded, trail), launches, cap, seconds = traced(
-        run_batching, arrivals, sizes, "slot_vec", kv="sharded",
-        max_bits=max_bits)
-    same = {k: v for k, v in sharded.items() if k != "wall_s"} == \
-        {k: v for k, v in vec.items() if k != "wall_s"}
+        batching_run, arrivals, sizes, "slot_vec", kv="sharded",
+        max_bits=max_bits, device=DEVICE)
+    timed = ("wall_s", "tok_per_s")
+    same = {k: v for k, v in sharded.items() if k not in timed} == \
+        {k: v for k, v in vec.items() if k not in timed}
     if not same or trail != vec_trail:
         raise AssertionError(f"{label}: kv='sharded' slot machine diverged "
                              f"from kv='vec'")
@@ -1457,32 +1412,45 @@ def sharded_batching(arrivals, sizes, vec, vec_trail, label: str,
 
 
 def phase_batching(ctx: Context) -> dict:
+    """``repro_torch.cases.case_batching`` at its smoke configuration, by
+    its pieces (the trace, the four engines, the case's asserts and its
+    report) so that the ``slot_vec`` trail stays for the sharded run:
+    against ``BENCH_case_batching.json``."""
+    from repro_torch.cases import (BATCHING_CONFIGS, batching_report,
+                                   batching_run, batching_trace,
+                                   bench_payload, check_batching)
+
     arrivals, sizes = batching_trace(smoke=True)
-    fresh, trails = {}, {}
-    for config in ("slot_vec", "slot_oracle", "lockstep", "lru"):
-        fresh[config], trails[config] = run_batching(arrivals, sizes, config)
-    failures = bench_failures("BENCH_case_batching.json", fresh)
+    runs = {config: batching_run(arrivals, sizes, config, device=DEVICE)
+            for config in BATCHING_CONFIGS}
+    check_batching(runs)
+    fresh = {config: rep for config, (rep, _) in runs.items()}
+    failures = bench_failures(
+        "BENCH_case_batching.json",
+        bench_payload("case_batching", batching_report(fresh)))
     if failures:
         raise AssertionError("; ".join(failures))
-    if trails["slot_vec"] != trails["slot_oracle"]:
-        raise AssertionError("slot machine diverged from the slot oracle")
-    vec = fresh["slot_vec"]
-    ctx.batching = (arrivals, sizes, vec, trails["slot_vec"])
+    vec, vec_trail = runs["slot_vec"]
+    ctx.batching = (arrivals, sizes, vec, vec_trail)
     return {"matches": "BENCH_case_batching.json",
             "requests": len(arrivals), **sizes,
             "peak_in_flight": vec["peak_in_flight"],
             "goodput_tok_per_tick": vec["goodput_tok_per_tick"],
             "wall_s": {c: r["wall_s"] for c, r in fresh.items()},
-            **sharded_batching(arrivals, sizes, vec, trails["slot_vec"],
-                               "batching")}
+            **sharded_batching(arrivals, sizes, vec, vec_trail, "batching")}
 
 
 def phase_batching_full(ctx: Context) -> dict:
-    """``case_batching``'s full configuration (4000 requests, 128 slots,
-    1024-token prefill budget).  It has no checked-in keys: ``kv="sharded"``
-    is held against ``kv="vec"`` on the same trace."""
-    arrivals, sizes = batching_trace(smoke=False)
-    vec, vec_trail = run_batching(arrivals, sizes, "slot_vec")
+    """``case_batching``'s full configuration (128 slots, 256 HBM pages,
+    1024-token prefill budget), its 4000 requests cut to
+    ``BATCHING_FULL_REQUESTS``.  It has no checked-in keys:
+    ``kv="sharded"`` is held against ``kv="vec"`` on the same trace."""
+    from repro_torch.cases import batching_run, batching_trace
+
+    arrivals, sizes = batching_trace(smoke=False,
+                                     n_requests=BATCHING_FULL_REQUESTS)
+    vec, vec_trail = batching_run(arrivals, sizes, "slot_vec",
+                                  device=DEVICE)
     return {"requests": len(arrivals), **sizes,
             "peak_in_flight": vec["peak_in_flight"],
             "goodput_tok_per_tick": vec["goodput_tok_per_tick"],
@@ -1519,6 +1487,268 @@ def phase_launcher(ctx: Context, extra=(), label: str = "launcher",
 
 
 # --------------------------------------------------------------------------- #
+# elastic serving, the MoE expert tier, observability                         #
+# --------------------------------------------------------------------------- #
+
+def counter_failures(label: str, want: dict, got: dict) -> list:
+    """The keys of ``want`` (nested one level at most) that ``got`` does
+    not reproduce exactly."""
+    bad = []
+    for key, value in want.items():
+        if isinstance(value, dict):
+            bad += counter_failures(f"{label}.{key}", value, got.get(key, {}))
+        elif got.get(key) != value:
+            bad.append(f"{label}.{key}: {got.get(key)!r} != {value!r}")
+    return bad
+
+
+def phase_elastic(ctx: Context) -> dict:
+    """``case_elastic`` on the card: its smoke configuration against
+    ``BENCH_case_elastic.json``, then its full configuration (the case's
+    own asserts: tokens, counters, LRU order, prefetch log and shard
+    stats equal to the uninterrupted scalar oracle's, less migrated than
+    a full rebuild) with its counters equal to ``ELASTIC_FULL``.  Every
+    refresh and recovery runs the flat mask, gcd and factorization on the
+    card; each is held against its plain version at every shape each run
+    gave it, and timed at the full run's."""
+    from repro_torch.cases import case_elastic
+
+    smoke, s_launches, s_cap, _ = traced(case_elastic, smoke=True,
+                                         device=DEVICE)
+    failures = bench_failures("BENCH_case_elastic.json", smoke)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    check_path("elastic_smoke", s_launches, s_cap.inputs, timed=False,
+               shape_launches=s_cap.launches)
+    full, launches, cap, seconds = traced(case_elastic, smoke=False,
+                                          device=DEVICE)
+    bad = counter_failures("case_elastic", ELASTIC_FULL, full)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    rows = check_path("elastic", launches, cap.inputs,
+                      shape_launches=cap.launches)
+    return {"matches": ["BENCH_case_elastic.json", "ELASTIC_FULL"],
+            "smoke_launches": s_launches, "launches": launches, **full,
+            "sharded_time_split": time_split(full["wall_s_elastic"], seconds,
+                                             launches, rows)}
+
+
+def phase_moe(ctx: Context) -> dict:
+    """``case_moe`` on the card: its smoke configuration against
+    ``BENCH_case_moe.json``, its full configuration with the synthetic
+    router against ``MOE_FULL``; then the full schedule through
+    ``VectorizedExpertCache(discover="kernel")``, whose co-fire rows are
+    rebuilt through the flat mask and factorization on the card at every
+    registry change: its counters and prefetch log equal the
+    ``discover="incremental"`` run's, and each kernel is held against its
+    plain version at every shape it launched at."""
+    from repro_torch.cases import (bench_payload, case_moe, moe_run,
+                                   moe_schedule)
+    from repro_torch.serving.expert_cache_vec import VectorizedExpertCache
+
+    fresh = bench_payload("case_moe", case_moe(smoke=True, device=DEVICE))
+    failures = bench_failures("BENCH_case_moe.json", fresh)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    full = case_moe(smoke=False, real_router=False, device=DEVICE)
+    bad = counter_failures("case_moe", MOE_FULL, full)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    ms = moe_schedule(smoke=False)
+
+    def cache(discover):
+        return VectorizedExpertCache(ms.n_experts, hbm_slots=ms.slots,
+                                     prefetch_budget=ms.topk - 1,
+                                     discover=discover, device=DEVICE)
+
+    incremental = moe_run(ms, cache("incremental"))
+    kc = cache("kernel")
+    kernel, launches, cap, seconds = traced(moe_run, ms, kc)
+    for key in ("parity", "prefetch_log"):
+        if kernel[key] != incremental[key]:
+            raise AssertionError(f"discover='kernel' diverged from "
+                                 f"'incremental': {key}")
+    rows = check_path("moe", launches, cap.inputs,
+                      required=["divisibility_mask", "factorize_squarefree"],
+                      shape_launches=cap.launches)
+    walls = {k: v["wall_s"] for k, v in full.items() if isinstance(v, dict)
+             and "wall_s" in v}
+    return {"matches": ["BENCH_case_moe.json", "MOE_FULL"],
+            "full": {k: v for k, v in full.items() if k in MOE_FULL},
+            "wall_s": walls, "kernel_discover": {
+                "wall_s": kernel["wall_s"],
+                "incremental_wall_s": incremental["wall_s"],
+                "bulk_refreshes": kc.bulk_refreshes,
+                "parity": list(kernel["parity"]),
+                "prefetches_logged": len(kernel["prefetch_log"]),
+                "launches": launches,
+                "device_ms": {r["name"]: r.get("device_ms") for r in rows}}}
+
+
+#: ``tests/test_obs.py``'s golden arrival spec (seed 5, 10 requests at
+#: rate 1.2, prompts under 16 tokens from a shared pool of 8, up to 5 new
+#: tokens) and its inertness sweep's (seed 11, 18 requests)
+GOLDEN_SPEC = dict(seed=5, n_requests=10, rate=1.2, burst_frac=0.0,
+                   silence_ticks=0, min_prompt=1, max_prompt=16, max_new=6,
+                   shared_pool=8, key_space=200)
+SWEEP_SPEC = dict(seed=11, n_requests=18, rate=1.6, burst_frac=0.2,
+                  silence_ticks=0, min_prompt=1, max_prompt=22, max_new=8,
+                  shared_pool=12, key_space=200)
+#: ``tests/test_obs.py``'s slot-machine configuration
+OBS_CFG = dict(max_batch=4, page_size=4, hbm_pages=24, prefetch_budget=2,
+               reread_window=2, prefill_tokens=12, preempt_wait=3)
+#: where the ``obs`` phase's launcher writes its ``--trace`` export
+#: (``build/`` is gitignored)
+OBS_TRACE = os.path.join(ROOT, "build", "obs_trace.json")
+
+
+def spec_arrivals(spec: dict) -> list:
+    """``tests/strategies.py::build_poisson_arrivals`` for one tenant:
+    ``(tick, prompt, max_new)`` (``tests/test_torch_imports.py`` holds
+    the two equal)."""
+    from repro_torch.serving.slots import poisson_arrival_ticks
+
+    rng = np.random.default_rng(spec["seed"])
+    ticks = poisson_arrival_ticks(spec["n_requests"], rate=spec["rate"],
+                                  seed=spec["seed"],
+                                  burst_frac=spec["burst_frac"],
+                                  silence_ticks=spec["silence_ticks"])
+    shared = list(rng.integers(0, spec["key_space"],
+                               size=spec["shared_pool"]))
+    lo = max(1, spec["min_prompt"])
+    hi = max(lo + 1, spec["max_prompt"])
+    out = []
+    for t in ticks:
+        n = int(rng.integers(lo, hi))
+        pfx = int(rng.integers(0, min(spec["shared_pool"], n) + 1))
+        tail = [int(x) for x in rng.integers(0, spec["key_space"],
+                                             size=n - pfx)]
+        out.append((int(t), tuple(int(x) for x in shared[:pfx]) + tuple(tail),
+                    int(rng.integers(1, max(2, spec["max_new"])))))
+    return out
+
+
+def drive_slots(cls: str, kv: str, arrivals, ob, device=None):
+    """One slot engine of ``tests/test_obs.py``'s configuration over the
+    arrivals, to idle."""
+    from repro_torch.serving import slots
+
+    eng = getattr(slots, cls)(kv=kv, obs=ob, device=device or DEVICE,
+                              **OBS_CFG)
+    for t, prompt, new in arrivals:
+        eng.submit(list(prompt), max_new_tokens=new, arrival=t)
+    eng.run_until_idle(max_ticks=100_000)
+    return eng
+
+
+def placement(eng) -> tuple:
+    """What the inertness contract holds fixed: counters, tiers, the LRU
+    order, the host set, the prefetch log, every request's tokens and
+    tick timings."""
+    from repro_torch.serving.kv_cache import PARITY_COUNTERS
+
+    return (tuple(getattr(eng.pages.stats, f) for f in PARITY_COUNTERS),
+            tuple(eng.tier_log), tuple(eng.pages.hbm.items()),
+            frozenset(eng.pages.host), tuple(eng.pages.prefetch_log),
+            tuple(tuple(r.generated) for r in eng.requests),
+            tuple((r.first_tick, r.done_tick, r.preemptions)
+                  for r in eng.requests))
+
+
+def ledger_failures(ledger: dict, launches: dict, n_shards: int) -> list:
+    """Where the kernel ledger's calls disagree with the launch counters:
+    each wrapper launches its kernel once a call, the gcd exchange the
+    mask and the gcd once a shard."""
+    calls = {k: v["calls"] for k, v in ledger.items()}
+    exch = n_shards * calls.get("sharded_gcd_exchange", 0)
+    want = {"divisibility_mask": calls.get("divisibility_scan", 0) + exch,
+            "gcd": calls.get("gcd_batch", 0) + exch,
+            "factorize_squarefree": calls.get("factorize_batch", 0)}
+    return [f"{k}: {launches.get(k, 0)} launches, ledger {v}"
+            for k, v in want.items() if launches.get(k, 0) != v]
+
+
+def phase_obs(ctx: Context) -> dict:
+    """The observability layer on the card: ``SlotMachine`` and
+    ``SlotOracle`` on ``tests/test_obs.py``'s golden spec with
+    ``kv="sharded"`` and ``kv="elastic"`` give event streams that
+    ``trace_diff`` finds identical to each other and to the same run with
+    the plain versions; placement is the same with ``obs=None``, a
+    zero-capacity tracer and a live tracer; the kernel ledger's calls
+    equal the launch counters over the golden runs (and an elastic
+    shard's loss and recovery); the launcher runs with ``--kv elastic
+    --trace`` and ``tools/trace_view.py`` converts its export."""
+    from repro_torch.obs import Observability, profile, trace_diff
+
+    golden, sweep = spec_arrivals(GOLDEN_SPEC), spec_arrivals(SWEEP_SPEC)
+
+    def golden_runs():
+        streams = {}
+        with profile.profiling():
+            for kv in ("sharded", "elastic"):
+                for cls in ("SlotMachine", "SlotOracle"):
+                    streams[kv, cls] = Observability(trace_capacity=8192)
+                    drive_slots(cls, kv, golden, streams[kv, cls])
+            # an elastic shard's loss and recovery (its decode)
+            drive_slots("SlotMachine", "elastic", golden, None).fail_shard(0)
+            return streams, profile.summary()
+
+    (streams, ledger), launches, cap, _ = traced(golden_runs)
+    bad = ledger_failures(ledger, launches, n_shards=2)
+    if bad:
+        raise AssertionError("kernel ledger != launch counters: "
+                             + "; ".join(bad))
+    rows = check_path("obs_golden", launches, cap.inputs, timed=False,
+                      shape_launches=cap.launches)
+    events, inert = {}, {}
+    for kv in ("sharded", "elastic"):
+        plain = Observability(trace_capacity=8192)
+        drive_slots("SlotMachine", kv, golden, plain, device="cpu")
+        card = streams[kv, "SlotMachine"].trace
+        for other, trace in (("SlotOracle", streams[kv, "SlotOracle"].trace),
+                             ("the plain versions' run", plain.trace)):
+            diff = trace_diff(card, trace)
+            if diff is not None:
+                raise AssertionError(f"{kv}: SlotMachine and {other} event "
+                                     f"streams differ at {diff}")
+        events[kv] = card.total
+    for kv in ("sharded", "elastic"):
+        for cls in ("SlotMachine", "SlotOracle"):
+            runs = [placement(drive_slots(cls, kv, sweep, ob)) for ob in (
+                None, Observability(trace_capacity=0, telemetry=False),
+                Observability(trace_capacity=4096))]
+            if not runs[0] == runs[1] == runs[2]:
+                raise AssertionError(f"tracing changed {cls} {kv}'s "
+                                     f"placement")
+            inert[f"{cls}/{kv}"] = "identical"
+    path = OBS_TRACE
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    # the later --kv overrides run_launcher's --kv sharded
+    launcher = phase_launcher(ctx, ("--kv", "elastic", "--trace", path),
+                              "launcher_elastic")
+    with open(path) as f:
+        payload = json.load(f)
+    spec = importlib.util.spec_from_file_location(
+        "trace_view", os.path.join(ROOT, "tools", "trace_view.py"))
+    trace_view = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace_view)
+    chrome = trace_view.convert(payload)
+    phases = sorted({e["ph"] for e in chrome["traceEvents"]})
+    if not {"i", "C", "X", "M"} <= set(phases):
+        raise AssertionError(f"trace_view gave phases {phases}")
+    if "sharded_gcd_exchange" not in payload["kernel_launches"]:
+        raise AssertionError("the launcher's ledger has no gcd exchange")
+    return {"golden_events": events, "twins_identical": ["sharded",
+                                                         "elastic"],
+            "inert": inert, "ledger": ledger, "launches": launches,
+            "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
+            "launcher": {k: launcher[k] for k in ("completed", "launches",
+                                                  "trace_events")},
+            "trace_view_events": len(chrome["traceEvents"]),
+            "trace_view_phases": phases}
+
+
+# --------------------------------------------------------------------------- #
 # the wide (multi-limb) path                                                  #
 # --------------------------------------------------------------------------- #
 
@@ -1542,6 +1772,13 @@ def phase_scale(ctx: Context) -> dict:
     out, ctx.scale_launches, cap, _ = traced(verify_scale, ctx.universe,
                                              device=DEVICE)
     failures = bench_failures("BENCH_case_scale.json", out)
+    with open(os.path.join(ROOT, "BENCH_case_scale.json")) as f:
+        ref_ledger = json.load(f)["obs"]["kernel_launches"]
+    ledger = out["obs"]["kernel_launches"]
+    failures += [f"obs.kernel_launches.{k}: {ledger.get(k)} != {v}"
+                 for k, v in ref_ledger.items() if ledger.get(k) is None
+                 or (ledger[k]["calls"], ledger[k]["items"])
+                 != (v["calls"], v["items"])]
     if failures:
         raise AssertionError("; ".join(failures))
     ctx.scale_rows = check_path("scale", ctx.scale_launches, cap.inputs,
@@ -1624,17 +1861,21 @@ def phase_serving_wide(ctx: Context) -> dict:
     equal to the narrow ``kv="vec"`` run's (placement does not depend on
     the width); then the ``case_batching`` smoke trace with
     ``kv="sharded"`` at 128 bits against its narrow ``kv="vec"`` run."""
+    from repro_torch.cases import serving_run
+
     out = {}
     for max_bits in (128, 1024):
         walls = {}
         for kv in ("vec", "scalar"):
-            rep, trail = run_serving(kv, 4, smoke=False, max_bits=max_bits)
+            rep, trail = serving_run(kv, 4, smoke=False, max_bits=max_bits,
+                                     device=DEVICE)
             if trail != ctx.serving_trail:
                 raise AssertionError(f"{kv} at {max_bits} bits diverged "
                                      f"from the narrow run")
             walls[kv] = rep["wall_s"]
         (rep, trail), launches, cap, seconds = traced(
-            run_serving, "sharded", 4, smoke=False, max_bits=max_bits)
+            serving_run, "sharded", 4, smoke=False, max_bits=max_bits,
+            device=DEVICE)
         if trail != ctx.serving_trail:
             raise AssertionError(f"sharded at {max_bits} bits diverged from "
                                  f"the narrow run")
@@ -2435,6 +2676,9 @@ PHASES = [
     ("batching", phase_batching),
     ("batching_full", phase_batching_full),
     ("launcher", phase_launcher),
+    ("elastic", phase_elastic),
+    ("moe", phase_moe),
+    ("obs", phase_obs),
     ("scale", phase_scale),
     ("scale_full_scan", phase_scale_full_scan),
     ("serving_wide", phase_serving_wide),

@@ -1,4 +1,29 @@
-"""Benchmark cases of the port, after ``benchmarks/cases.py``.
+"""Benchmark cases of the port, after ``benchmarks/cases.py``: each
+``case_*`` runs the reference's configuration through the port's
+entry points on ``device`` (default ``"cuda"``), makes the reference's
+asserts, and returns the reference's dict; :func:`bench_payload` turns
+that dict into the keys of the reference's ``BENCH_case_*.json``, and
+the runner writes them:
+
+    python -m repro_torch.cases --out bench_torch [--full] [--cases ...]
+        [--device cuda|cpu]
+    python tools/check_bench_regression.py --baseline <copies of the
+        checked-in BENCH_case_*.json> --fresh bench_torch
+
+* :func:`case_serving` — ``ServingEngine`` (``model=None``) over the
+  paged-KV caches: vectorized, scalar oracle, LRU, sharded.
+* :func:`case_batching` — open-loop Poisson arrivals through
+  ``SlotMachine`` / ``SlotOracle``, continuous against lockstep and LRU.
+* :func:`case_elastic` — a resize storm and shard kills under load,
+  against the uninterrupted scalar oracle.
+* :func:`case_moe` — the MoE expert tier over a router schedule, and the
+  engine's synthetic-router load generator.
+* :func:`case_scale` — the wide registry (below).
+
+Three cases are also split into the pieces ``chip_smoke.py`` drives on
+the card (``serving_run``; ``batching_trace``, ``batching_run``,
+``check_batching`` and ``batching_report``; ``moe_schedule`` and
+``moe_run``).
 
 :func:`case_scale` is the million-element wide-registry case: 1M data
 elements through Algorithm 1's MEM pool, 10,000 chains 100 deep
@@ -22,7 +47,10 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.core.assignment import PrimeAssigner
 from repro_torch.core.composite import (CompositeRegistry,
@@ -30,9 +58,16 @@ from repro_torch.core.composite import (CompositeRegistry,
                                         n_limbs_for_bits, pack_limbs)
 from repro_torch.core.primes import CacheLevel, HierarchicalPrimeAllocator
 from repro_torch.device import resolve_device
+from repro_torch.obs import profile
+from repro_torch.obs.telemetry import Progress
 
 __all__ = ["ScaleUniverse", "build_scale_universe", "verify_scale",
-           "case_scale", "NEGATIVE_PRIMES", "SCALE_MAX_BITS", "GROUP_STRIDE"]
+           "case_scale", "NEGATIVE_PRIMES", "SCALE_MAX_BITS", "GROUP_STRIDE",
+           "case_serving", "serving_run", "case_batching", "BATCHING_CONFIGS",
+           "batching_trace", "batching_run", "check_batching",
+           "batching_report", "case_elastic", "case_moe", "MoESchedule",
+           "moe_schedule", "moe_run", "bench_payload", "CASES", "DEFAULT_OUT",
+           "run_case", "main"]
 
 #: the registry's chunk width: 1024 bits, 32 limbs
 SCALE_MAX_BITS = 1024
@@ -60,6 +95,7 @@ class ScaleUniverse:
     queries: List[int]       # every 7th pool prime + NEGATIVE_PRIMES
     assign_wall_s: float
     register_wall_s: float
+    build_rate: Dict[str, object]   # the registry loop's Progress summary
 
 
 def build_scale_universe(n_chains: int = 10_000, depth: int = 100,
@@ -75,11 +111,14 @@ def build_scale_universe(n_chains: int = 10_000, depth: int = 100,
     assign_wall = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    prog = Progress(n_chains, label="register chains", quiet=True)
     for c in range(n_chains):
         row = prime_of[c * depth:(c + 1) * depth]
         registry.register_many(zip(row, row[1:]), kind="chain")
         if c % GROUP_STRIDE == 0:
             registry.register(row, kind="group")      # -> wide chunks
+        prog.advance()
+    build_rate = prog.finish()
     register_wall = time.perf_counter() - t0
 
     half = n_verify_chains // 2
@@ -98,19 +137,29 @@ def build_scale_universe(n_chains: int = 10_000, depth: int = 100,
     return ScaleUniverse(registry, assigner, prime_of, n_chains, depth,
                          sample_chains, pool, sample,
                          pool[::7] + NEGATIVE_PRIMES, assign_wall,
-                         register_wall)
+                         register_wall, build_rate)
 
 
 def verify_scale(u: ScaleUniverse, device="cuda") -> Dict[str, object]:
     """The differential verification of :func:`case_scale` on ``device``
     (the limb scan, the staged factorization and the limb gcd, each
     against exact Python ints); raises on any disagreement, returns the
-    case's report."""
+    case's report with the reference's ``obs`` block: the registry
+    loop's rate and the kernel wrappers' launch ledger (collected here,
+    the ledger's earlier state restored after)."""
+    dev = resolve_device(device)
+    with profile.profiling():
+        out = _verify_scale(u, dev)
+        launches = profile.summary()
+    out["obs"] = dict(registry_build=u.build_rate, kernel_launches=launches)
+    return out
+
+
+def _verify_scale(u: ScaleUniverse, dev) -> Dict[str, object]:
     from repro_torch.kernels.ops import (divisibility_scan_limbs,
                                          factorize_batch_exact,
                                          gcd_batch_exact)
 
-    dev = resolve_device(device)
     comps = u.registry.composites_list()
     wide = [c for c in comps if c.bit_length() > 63]
     if not wide:
@@ -183,3 +232,612 @@ def case_scale(n_chains: int = 10_000, depth: int = 100,
     setting, the one ``BENCH_case_scale.json`` records)."""
     return verify_scale(build_scale_universe(n_chains, depth,
                                              n_verify_chains), device)
+
+
+# --------------------------------------------------------------------------- #
+# serving: case_serving                                                       #
+# --------------------------------------------------------------------------- #
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serving_run(kv: str, budget: int, smoke: bool = False,
+                n_shards: int = 2, max_bits: int = 62,
+                device="cuda") -> Tuple[Dict[str, object], Dict[str, object]]:
+    """One ``case_serving`` engine run (``ServingEngine``, ``model=None``,
+    the shared-prefix request mix of seed 0): ``(report, trail)``, the
+    trail holding the parity counters, every touch's tier and the
+    prefetch log.  The wall leaves out the tier recording (reported on
+    its own as ``tier_record_s``) and waits for the card."""
+    from repro_torch.serving.engine import ServingEngine
+
+    dev = resolve_device(device)
+    # HBM is sized BELOW the live working set (live slots x reread
+    # window) on purpose: the regime where placement decides everything
+    c = (dict(n_req=48, max_batch=16, max_new=8, hbm=24, shared_tok=64,
+              window=2) if smoke else
+         dict(n_req=256, max_batch=128, max_new=32, hbm=384, shared_tok=128,
+              window=4))
+    rng = np.random.default_rng(0)
+    eng = ServingEngine(None, None, max_batch=c["max_batch"], page_size=16,
+                        hbm_pages=c["hbm"], kv=kv, prefetch_budget=budget,
+                        reread_window=c["window"], shards=n_shards,
+                        max_bits=max_bits, device=dev)
+    tiers: List[str] = []
+    record_s = [0.0]
+
+    def record(items, touch=eng.pages.touch_batch):
+        out = touch(items)
+        t = time.perf_counter()
+        tiers.extend(out)
+        record_s[0] += time.perf_counter() - t
+        return out
+
+    eng.pages.touch_batch = record
+    groups = [list(rng.integers(0, 30_000, size=c["shared_tok"]))
+              for _ in range(max(1, c["n_req"] // 8))]
+    for r in range(c["n_req"]):
+        tail = list(rng.integers(0, 30_000, size=int(rng.integers(48, 129))))
+        eng.submit(groups[r % len(groups)] + tail,
+                   max_new_tokens=c["max_new"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    _sync(dev)
+    wall = time.perf_counter() - t0 - record_s[0]
+    toks = sum(len(r.generated) for r in done)
+    ttfts = [r.first_token_t - r.submit_t for r in done
+             if r.first_token_t is not None]
+    st = eng.pages.stats
+    out = dict(kv=kv, max_bits=max_bits, completed=len(done), wall_s=wall,
+               tier_record_s=record_s[0], tok_per_s=toks / max(wall, 1e-9),
+               req_per_s=len(done) / max(wall, 1e-9),
+               mean_ttft_s=float(np.mean(ttfts)) if ttfts else 0.0,
+               peak_concurrency=eng.peak_live,
+               hbm_hit_rate=st.hbm_hit_rate,
+               prefetch_hit_rate=st.prefetch_hit_rate,
+               registry_scans=st.registry_scans,
+               bulk_refreshes=getattr(eng.pages, "bulk_refreshes", None),
+               parity=st.parity_tuple())
+    if kv == "sharded":
+        scan = eng.pages.last_scan
+        out.update(shards=n_shards, used_shard_map=scan.used_shard_map,
+                   local_composites=list(scan.local_composites),
+                   cross_composites=scan.cross_composites,
+                   queries_per_shard=list(scan.queries_per_shard),
+                   gcd_pairs=scan.gcd_pairs,
+                   shard_load=eng.pages.shard_load(),
+                   shard_agg_parity=eng.pages.aggregate_shard_stats()
+                   .parity_tuple())
+    trail = {"parity": st.parity_tuple(), "tiers": tiers,
+             "prefetch_log": list(eng.pages.prefetch_log)}
+    return out, trail
+
+
+def case_serving(smoke: bool = False, shards=None, max_bits: int = 62,
+                 device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_serving`` on the port: the same request
+    mix through ``pfcs_vec`` (vectorized cache), ``pfcs_scalar`` (the
+    oracle), ``lru`` (prefetch off) and ``pfcs_shard{N}`` for each shard
+    count of ``shards`` (default 1/2/4, smoke 2), with the reference's
+    asserts: every cache's counters equal the oracle's, per-shard stats
+    aggregate to the total, no per-page registry scan on the vectorized
+    paths, and (full size) 100+ concurrent requests a step.  Returns the
+    reference's dict (each run's report without its parity tuples, and
+    ``vec_vs_scalar_speedup``); :func:`bench_payload` gives the keys of
+    ``BENCH_case_serving.json``."""
+    if shards is None:
+        shards = (2,) if smoke else (1, 2, 4)
+    kw = dict(smoke=smoke, max_bits=max_bits, device=device)
+    res = {"pfcs_vec": serving_run("vec", 4, **kw)[0],
+           "pfcs_scalar": serving_run("scalar", 4, **kw)[0],
+           "lru": serving_run("vec", 0, **kw)[0]}
+    for n in shards:
+        res[f"pfcs_shard{n}"] = serving_run("sharded", 4, n_shards=n,
+                                            **kw)[0]
+    oracle = res["pfcs_scalar"]["parity"]
+    if res["pfcs_vec"]["parity"] != oracle:
+        raise AssertionError("vectorized serving cache diverged from the "
+                             "scalar oracle")
+    if res["pfcs_vec"]["registry_scans"]:
+        raise AssertionError("vectorized touch path performed a per-page "
+                             "registry scan")
+    for n in shards:
+        r = res[f"pfcs_shard{n}"]
+        if r["parity"] != oracle:
+            raise AssertionError(f"sharded cache ({n} shards) diverged from "
+                                 f"the scalar oracle")
+        if r["shard_agg_parity"] != r["parity"]:
+            raise AssertionError(f"per-shard stats ({n} shards) do not "
+                                 f"aggregate to the total")
+        if r["registry_scans"]:
+            raise AssertionError("sharded touch path performed a per-page "
+                                 "registry scan")
+    if not smoke and res["pfcs_vec"]["peak_concurrency"] < 100:
+        raise AssertionError("load benchmark must sustain >= 100 concurrent "
+                             "requests/step")
+    out = {k: {kk: vv for kk, vv in v.items()
+               if kk not in ("parity", "shard_agg_parity")}
+           for k, v in res.items()}
+    out["vec_vs_scalar_speedup"] = (res["pfcs_scalar"]["wall_s"]
+                                    / max(res["pfcs_vec"]["wall_s"], 1e-9))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# serving: case_batching                                                      #
+# --------------------------------------------------------------------------- #
+
+#: ``case_batching``'s engines: config -> (engine class name, admission
+#: policy, prefetch budget, preempt wait)
+BATCHING_CONFIGS = {
+    "slot_vec": ("SlotMachine", "continuous", 4, 6),
+    "slot_oracle": ("SlotOracle", "continuous", 4, 6),
+    "lockstep": ("SlotMachine", "lockstep", 4, None),
+    "lru": ("SlotMachine", "continuous", 0, 6),
+}
+
+
+def batching_trace(smoke: bool, n_requests: Optional[int] = None):
+    """``case_batching``'s arrival trace and engine sizes: a 60% burst
+    front plus a Poisson tail, 32-token shared prefixes, ragged tails and
+    decode demands: ``(arrivals, sizes)``, ``arrivals`` as ``(tick,
+    prompt, max_new)``.  ``n_requests`` replaces the configuration's
+    request count (1200 smoke, 4000 full) in the same recipe."""
+    from repro_torch.serving.slots import poisson_arrival_ticks
+
+    if smoke:
+        n_req, max_batch, rate, hbm, prefill_tok = 1200, 64, 24.0, 96, 256
+    else:
+        n_req, max_batch, rate, hbm, prefill_tok = 4000, 128, 48.0, 256, 1024
+    n_req = n_requests or n_req
+    rng = np.random.default_rng(0)
+    ticks = poisson_arrival_ticks(n_req, rate=rate, seed=0, burst_frac=0.6,
+                                  silence_ticks=2)
+    groups = [list(rng.integers(0, 30_000, size=48))
+              for _ in range(max(1, n_req // 64))]
+    arrivals = []
+    for i, t in enumerate(ticks):
+        tail = list(rng.integers(0, 30_000, size=int(rng.integers(8, 33))))
+        arrivals.append((int(t), groups[i % len(groups)][:32] + tail,
+                         int(rng.integers(4, 9))))
+    return arrivals, dict(max_batch=max_batch, hbm_pages=hbm,
+                          prefill_tokens=prefill_tok)
+
+
+def batching_run(arrivals, sizes, config: str, kv: str = "vec",
+                 max_bits: int = 62, device="cuda"):
+    """One ``case_batching`` engine (``config`` a key of
+    :data:`BATCHING_CONFIGS`) over the trace: ``(report, trail)``, the
+    report the slot machine's latency report with the wall and hit
+    rates, the trail its parity counters, prefetch log, tier log and
+    every request's tick timings."""
+    from repro_torch.serving import slots
+
+    dev = resolve_device(device)
+    cls, policy, budget, wait = BATCHING_CONFIGS[config]
+    eng = getattr(slots, cls)(page_size=16, kv=kv, prefetch_budget=budget,
+                              reread_window=2, policy=policy,
+                              preempt_wait=wait, shards=2,
+                              max_bits=max_bits, device=dev, **sizes)
+    for t, prompt, new in arrivals:
+        eng.submit(prompt, max_new_tokens=new, arrival=t)
+    _sync(dev)
+    t0 = time.perf_counter()
+    eng.run_until_idle(max_ticks=1_000_000)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    rep = eng.latency_report()
+    rep.update(wall_s=wall, tok_per_s=rep["tokens"] / max(wall, 1e-9),
+               hbm_hit_rate=eng.pages.stats.hbm_hit_rate,
+               prefetch_hit_rate=eng.pages.stats.prefetch_hit_rate)
+    trail = {"parity": eng.pages.stats.parity_tuple(),
+             "prefetch_log": list(eng.pages.prefetch_log),
+             "tier_log": eng.tier_log,
+             "timings": [(r.first_tick, r.done_tick, r.preemptions)
+                         for r in eng.requests]}
+    return rep, trail
+
+
+def case_batching(smoke: bool = False, device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_batching`` on the port: one open-loop
+    Poisson trace through ``slot_vec``, ``slot_oracle``, ``lockstep`` and
+    ``lru``, with the reference's asserts (machine and oracle bit-exact on
+    counters, tiers, prefetches and every request's timings; continuous
+    beats lockstep on goodput; 1k+ peak in-flight).  Returns the
+    reference's dict; :func:`bench_payload` gives the keys of
+    ``BENCH_case_batching.json``."""
+    arrivals, sizes = batching_trace(smoke)
+    runs = {config: batching_run(arrivals, sizes, config, device=device)
+            for config in BATCHING_CONFIGS}
+    check_batching(runs)
+    return batching_report({c: rep for c, (rep, _) in runs.items()})
+
+
+def check_batching(runs: Dict[str, tuple]) -> None:
+    """``case_batching``'s asserts over ``{config: (report, trail)}``."""
+    (v, vt), (o, ot) = runs["slot_vec"], runs["slot_oracle"]
+    for key in ("parity", "tier_log", "prefetch_log", "timings"):
+        if vt[key] != ot[key]:
+            raise AssertionError(f"slot machine diverged from the slot "
+                                 f"oracle: {key}")
+    if ((v["ticks"], v["preemptions"], v["resumes"])
+            != (o["ticks"], o["preemptions"], o["resumes"])):
+        raise AssertionError("slot machine ticks / preemptions / resumes "
+                             "diverged from the oracle")
+    if (v["goodput_tok_per_tick"]
+            <= runs["lockstep"][0]["goodput_tok_per_tick"]):
+        raise AssertionError("continuous batching must beat the lockstep "
+                             "gate on goodput")
+    if v["peak_in_flight"] < 1000:
+        raise AssertionError("load benchmark must reach 1k+ concurrent "
+                             "in-flight requests")
+
+
+def batching_report(reps: Dict[str, dict]) -> Dict[str, object]:
+    out = {k: dict(r) for k, r in reps.items()}
+    out["goodput_vs_lockstep"] = (
+        reps["slot_vec"]["goodput_tok_per_tick"]
+        / max(reps["lockstep"]["goodput_tok_per_tick"], 1e-9))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# elastic: case_elastic                                                       #
+# --------------------------------------------------------------------------- #
+
+def case_elastic(smoke: bool = False, device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_elastic`` on the port: the same request
+    stream through the scalar oracle uninterrupted and through
+    ``kv="elastic"`` under a resize storm (2 <-> 4 shards every third
+    step), a kill with timed recovery every fourth step and one deferred
+    kill at step 5 (failover on demand), with the reference's asserts: tokens,
+    ``PARITY_COUNTERS``, the LRU order, the prefetch log and the
+    aggregate shard stats equal to the oracle's, no registry scan, some
+    block moved and less migrated than a full rebuild, two or more
+    recoveries with a partial one.  Recovery latency is host seconds
+    around each ``fail_shard`` (which recovers through the kernels on
+    ``device`` and waits for them)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    dev = resolve_device(device)
+    if smoke:
+        n_req, max_batch, max_new = 64, 16, 8
+        hbm, shared_tok, window = 24, 64, 2
+    else:
+        n_req, max_batch, max_new = 192, 64, 16
+        hbm, shared_tok, window = 128, 96, 3
+
+    def build(kv: str) -> ServingEngine:
+        rng = np.random.default_rng(0)
+        eng = ServingEngine(None, None, max_batch=max_batch, page_size=8,
+                            hbm_pages=hbm, kv=kv, prefetch_budget=4,
+                            reread_window=window, shards=2, device=dev)
+        groups = [list(rng.integers(0, 30_000, size=shared_tok))
+                  for _ in range(max(1, n_req // 8))]
+        for r in range(n_req):
+            tail = list(rng.integers(0, 30_000,
+                                     size=int(rng.integers(48, 129))))
+            eng.submit(groups[r % len(groups)] + tail,
+                       max_new_tokens=max_new)
+        return eng
+
+    def drain(eng: ServingEngine, chaos: bool):
+        done, step, recovery_s = [], 0, []
+        _sync(dev)
+        t0 = time.perf_counter()
+        while eng.queue or any(s is not None for s in eng.slots):
+            if chaos:
+                if step % 3 == 2:               # resize storm: 2 <-> 4
+                    eng.resize(4 if eng.pages.n_shards == 2 else 2)
+                if step % 4 == 1:               # kill + timed recovery
+                    t1 = time.perf_counter()
+                    eng.fail_shard(step % eng.pages.n_shards)
+                    _sync(dev)
+                    recovery_s.append(time.perf_counter() - t1)
+                if step == 5:                   # failover on demand
+                    eng.fail_shard(0, recover=False)
+            before = list(eng.slots)
+            eng.step()
+            done.extend(r for r in before
+                        if r is not None and r.state == "done")
+            step += 1
+        _sync(dev)
+        return done, time.perf_counter() - t0, recovery_s
+
+    oracle = build("scalar")
+    done_o, wall_o, _ = drain(oracle, chaos=False)
+    eng = build("elastic")
+    done_e, wall_e, recovery_s = drain(eng, chaos=True)
+
+    def key(rs):
+        return [(r.req_id, tuple(r.generated))
+                for r in sorted(rs, key=lambda r: r.req_id)]
+
+    pages, st_e, st_o = eng.pages, eng.pages.stats, oracle.pages.stats
+    if key(done_e) != key(done_o):
+        raise AssertionError("elastic chaos run diverged from the "
+                             "uninterrupted oracle")
+    if st_e.parity_tuple() != st_o.parity_tuple():
+        raise AssertionError("elastic counters diverged from the scalar "
+                             "oracle")
+    if list(pages.hbm.items()) != list(oracle.pages.hbm.items()):
+        raise AssertionError("elastic LRU order diverged from the oracle")
+    if pages.prefetch_log != oracle.pages.prefetch_log:
+        raise AssertionError("elastic prefetch log diverged from the oracle")
+    if st_e.registry_scans:
+        raise AssertionError("elastic touch path scanned the registry")
+    if pages.aggregate_shard_stats().parity_tuple() != st_e.parity_tuple():
+        raise AssertionError("per-shard stats do not aggregate to the total")
+    plans = pages.reshard_log
+    migrated = sum(p.migrated_bytes for p in plans)
+    full_rebuild = sum(p.full_rebuild_bytes for p in plans)
+    moved = sum(len(p.moved) for p in plans)
+    if not plans or moved <= 0:
+        raise AssertionError("resize storm never moved a block")
+    if migrated >= full_rebuild:
+        raise AssertionError("incremental migration must beat the naive "
+                             "full rebuild")
+    reports = pages.recovery_log
+    if pages.recoveries < 2 or not any(r.mode == "partial"
+                                       for r in reports):
+        raise AssertionError("too few recoveries, or none partial")
+    return dict(
+        wall_s_oracle=wall_o, wall_s_elastic=wall_e,
+        tok_per_s=sum(len(r.generated) for r in done_e) / max(wall_e, 1e-9),
+        n_resizes=len(plans), n_recoveries=pages.recoveries,
+        moved_blocks=moved, migrated_bytes=migrated,
+        full_rebuild_bytes=full_rebuild,
+        migrated_ratio=migrated / max(full_rebuild, 1),
+        recovery_latency_mean_s=float(np.mean(recovery_s)),
+        recovery_latency_max_s=float(np.max(recovery_s)),
+        refactorized=sum(r.refactorized for r in reports),
+        rows_rebuilt=sum(r.rows_rebuilt for r in reports),
+        hbm_hit_rate=st_e.hbm_hit_rate,
+        prefetch_hit_rate=st_e.prefetch_hit_rate)
+
+
+# --------------------------------------------------------------------------- #
+# MoE: case_moe                                                               #
+# --------------------------------------------------------------------------- #
+
+@dataclass
+class MoESchedule:
+    """``case_moe``'s expert universe and router schedule."""
+
+    n_experts: int
+    hot_experts: int
+    slots: int
+    topk: int
+    steps: int
+    batch: int
+    hot: List[Tuple[int, ...]]     # the routed co-firing groups
+    cold: List[Tuple[int, ...]]    # other layers' structure, never routed
+    schedule: List[List[Tuple[int, ...]]]
+    eng_requests: int
+    eng_batch: int
+
+
+def moe_schedule(smoke: bool) -> MoESchedule:
+    """The expert universe (smoke: 256 experts, 64 hot, 16 HBM slots,
+    top-4, 150 steps of 4 sets; full: 4096, 256, 64, top-8, 1000 x 8),
+    its hot and cold groups and the router schedule, from seed 0."""
+    if smoke:
+        E, hot_e, slots, topk, steps, B = 256, 64, 16, 4, 150, 4
+        eng_req, eng_batch = 24, 8
+    else:
+        E, hot_e, slots, topk, steps, B = 4096, 256, 64, 8, 1000, 8
+        eng_req, eng_batch = 96, 32
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(hot_e)
+    hot = [tuple(int(e) for e in perm[i:i + topk])
+           for i in range(0, hot_e - topk + 1, topk)]
+    cold = [tuple(range(i, i + topk))
+            for i in range(hot_e, E - topk + 1, topk)]
+    schedule = [[hot[int(rng.integers(len(hot)))] for _ in range(B)]
+                for _ in range(steps)]
+    return MoESchedule(E, hot_e, slots, topk, steps, B, hot, cold, schedule,
+                       eng_req, eng_batch)
+
+
+def moe_run(ms: MoESchedule, cache) -> Dict[str, object]:
+    """Replay the schedule through one expert cache: the cold groups
+    registered first, then per step one ``observe_routing`` and two
+    ``activate_batch`` waves (each set's head expert, then its tail)."""
+    cache.observe_routing(ms.cold)
+    _sync(cache.device)
+    t0 = time.perf_counter()
+    for batch in ms.schedule:
+        cache.observe_routing(batch)
+        cache.activate_batch([g[:1] for g in batch])
+        cache.activate_batch([g[1:] for g in batch])
+    _sync(cache.device)
+    wall = time.perf_counter() - t0
+    s = cache.stats
+    return dict(wall_s=wall,
+                activations_per_s=ms.steps * ms.batch * ms.topk
+                / max(wall, 1e-9),
+                hbm_hit_rate=s.hit_rate, demand_misses=s.misses,
+                prefetch_precision=s.prefetch_precision,
+                registry_scans=s.registry_scans, parity=s.parity_tuple(),
+                prefetch_log=tuple(cache.prefetch_log))
+
+
+def case_moe(smoke: bool = False, real_router: Optional[bool] = None,
+             device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_moe`` on the port: the schedule through
+    ``pfcs_vec``, ``pfcs_scalar`` and ``lru`` (prefetch off), with the
+    reference's asserts (vec and scalar equal on counters and prefetch
+    log, no registry scan on the vectorized path, no prefetch under
+    LRU), then the engine's synthetic-router load generator
+    (``engine_loadgen``).  ``real_router`` (default: full size) needs a
+    MoE model, which is ROADMAP.md A.14 and raises."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.expert_cache import ExpertCache
+    from repro_torch.serving.expert_cache_vec import VectorizedExpertCache
+
+    if real_router is None:
+        real_router = not smoke
+    if real_router:
+        raise NotImplementedError("case_moe's real-router block needs a MoE "
+                                  "model, not ported yet (ROADMAP.md A.14); "
+                                  "pass real_router=False")
+    dev = resolve_device(device)
+    ms = moe_schedule(smoke)
+    budget = ms.topk - 1
+
+    def run(cls, b):
+        return moe_run(ms, cls(ms.n_experts, hbm_slots=ms.slots,
+                               prefetch_budget=b, device=dev))
+
+    res = {"pfcs_vec": run(VectorizedExpertCache, budget),
+           "pfcs_scalar": run(ExpertCache, budget),
+           "lru": run(VectorizedExpertCache, 0)}
+    v, o = res["pfcs_vec"], res["pfcs_scalar"]
+    if v["parity"] != o["parity"]:
+        raise AssertionError("vectorized expert cache diverged from the "
+                             "scalar oracle")
+    if v["prefetch_log"] != o["prefetch_log"]:
+        raise AssertionError("vectorized expert cache issued different "
+                             "prefetches")
+    if v["registry_scans"]:
+        raise AssertionError("vectorized activation path performed a "
+                             "per-expert registry scan")
+    if res["lru"]["prefetch_log"] != ():
+        raise AssertionError("LRU (budget 0) prefetched")
+
+    eng = ServingEngine(None, None, max_batch=ms.eng_batch, page_size=16,
+                        hbm_pages=ms.eng_batch * 3, moe="vec",
+                        moe_experts=ms.hot_experts, moe_slots=ms.slots,
+                        moe_topk=ms.topk, moe_groups=len(ms.hot),
+                        device=dev)
+    rng = np.random.default_rng(1)
+    for _ in range(ms.eng_requests):
+        eng.submit(list(rng.integers(0, 30_000,
+                                     size=int(rng.integers(16, 64)))),
+                   max_new_tokens=8)
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    es = eng.experts.stats
+    res["engine_loadgen"] = dict(
+        completed=len(done),
+        tok_per_s=sum(len(r.generated) for r in done) / max(wall, 1e-9),
+        expert_hit_rate=es.hit_rate, expert_misses=es.misses,
+        prefetch_precision=es.prefetch_precision,
+        registry_scans=es.registry_scans)
+    out = {k: {kk: vv for kk, vv in r.items()
+               if kk not in ("parity", "prefetch_log")}
+           for k, r in res.items()}
+    out["vec_vs_scalar_speedup"] = (o["wall_s"] / max(v["wall_s"], 1e-9))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# BENCH_*.json payloads and the runner                                        #
+# --------------------------------------------------------------------------- #
+
+def bench_payload(name: str, out: Dict[str, object]) -> Dict[str, object]:
+    """What the reference's ``save_bench`` writes for case ``name``
+    (``"case_serving"``, ...) from the case's returned dict: the keys
+    ``tools/check_bench_regression.py`` compares."""
+    if name == "case_serving":
+        runs = {k: v for k, v in out.items() if isinstance(v, dict)}
+        payload = {key: {k: r[key] for k, r in runs.items()}
+                   for key in ("wall_s", "tok_per_s", "hbm_hit_rate",
+                               "prefetch_hit_rate", "registry_scans")}
+        payload["vec_vs_scalar_speedup"] = out["vec_vs_scalar_speedup"]
+        return payload
+    if name == "case_batching":
+        return {config: dict(
+            completed=r["completed"], tokens=r["tokens"], ticks=r["ticks"],
+            goodput_tok_per_tick=r["goodput_tok_per_tick"],
+            ttft_ticks={str(q): x for q, x in r["ttft_ticks"].items()},
+            tpot_ticks={str(q): x for q, x in r["tpot_ticks"].items()},
+            preemptions=r["preemptions"], resumes=r["resumes"],
+            peak_in_flight=r["peak_in_flight"],
+            hbm_hit_rate=r["hbm_hit_rate"],
+            prefetch_hit_rate=r["prefetch_hit_rate"], wall_s=r["wall_s"])
+            for config, r in out.items() if isinstance(r, dict)}
+    if name == "case_moe":
+        caches = ("pfcs_vec", "pfcs_scalar", "lru")
+        payload = {key: {k: out[k][key] for k in caches}
+                   for key in ("hbm_hit_rate", "demand_misses",
+                               "prefetch_precision", "registry_scans")}
+        payload["engine_loadgen"] = {
+            k: out["engine_loadgen"][k]
+            for k in ("completed", "expert_hit_rate", "expert_misses",
+                      "prefetch_precision", "registry_scans")}
+        payload["vec_vs_scalar_speedup"] = out["vec_vs_scalar_speedup"]
+        return payload
+    if name in ("case_elastic", "case_scale"):
+        return dict(out)
+    raise ValueError(f"no BENCH payload for {name!r}")
+
+
+#: the runner's cases, in run order
+CASES = ("serving", "batching", "elastic", "moe", "scale")
+#: the runner's default output directory (gitignored)
+DEFAULT_OUT = "bench_torch"
+
+
+def run_case(case: str, full: bool, device="cuda") -> Dict[str, object]:
+    """One case at its smoke size (``full``: the published one, with
+    ``case_moe``'s real-router block off, ROADMAP.md A.14)."""
+    smoke = not full
+    if case == "serving":
+        return case_serving(smoke=smoke, device=device)
+    if case == "batching":
+        return case_batching(smoke=smoke, device=device)
+    if case == "elastic":
+        return case_elastic(smoke=smoke, device=device)
+    if case == "moe":
+        return case_moe(smoke=smoke, real_router=False, device=device)
+    if case == "scale":
+        return case_scale(n_verify_chains=24 if smoke else 64,
+                          device=device)
+    raise ValueError(f"unknown case {case!r}; choose from {CASES}")
+
+
+def main(argv=None) -> int:
+    """``python -m repro_torch.cases --out DIR [--full] [--cases ...]
+    [--device ...]``: runs the cases and writes ``BENCH_case_<name>.json``
+    into ``DIR``, which ``tools/check_bench_regression.py --baseline
+    <copies of the checked-in files> --fresh DIR`` compares."""
+    import argparse
+    import json
+    from pathlib import Path
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--out", default=DEFAULT_OUT,
+                    help=f"output directory (default {DEFAULT_OUT}/)")
+    ap.add_argument("--full", action="store_true",
+                    help="the published sizes instead of the smoke ones "
+                         "(the checked-in files are the smoke sizes')")
+    ap.add_argument("--cases", nargs="+", choices=CASES, default=list(CASES))
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the default) or 'cpu' for the kernels' "
+                         "plain versions")
+    args = ap.parse_args(argv)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for case in args.cases:
+        t0 = time.perf_counter()
+        out = run_case(case, args.full, device=args.device)
+        name = f"case_{case}"
+        path = out_dir / f"BENCH_{name}.json"
+        path.write_text(json.dumps(bench_payload(name, out), indent=1,
+                                   default=float, sort_keys=True) + "\n")
+        print(f"{name}: {time.perf_counter() - t0:.2f} s -> {path}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

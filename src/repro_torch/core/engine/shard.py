@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs.profile import kernel_scope
 from repro_torch.sharding.stripes import BlockStripes
 
 from ..composite import encode_relationship, limbs_to_int, pack_limbs
@@ -191,16 +192,19 @@ def _scan_sharded(local_c: np.ndarray, queries: np.ndarray,
     multi-device path would hand each shard)."""
     _check_stacks(local=local_c, queries=queries, chunks=chunks,
                   cross=cross_c)
-    lc, qs, ck = (_up(x, device) for x in (local_c, queries, chunks))
-    gathered = _up(cross_c.reshape(-1), device)
+    S, C = local_c.shape
     K = chunks.shape[1]
-    masks, gs = [], []
-    for s in range(local_c.shape[0]):
-        m, g = _one_shard_scan(lc[s], qs[s], ck[s], gathered, n_chunks=K)
-        masks.append(m)
-        gs.append(g)
-    return (torch.stack(masks).cpu().numpy(),
-            torch.stack(gs).cpu().numpy())
+    with kernel_scope("sharded_gcd_exchange", items=S * C):
+        lc, qs, ck = (_up(x, device) for x in (local_c, queries, chunks))
+        gathered = _up(cross_c.reshape(-1), device)
+        masks, gs = [], []
+        for s in range(S):
+            m, g = _one_shard_scan(lc[s], qs[s], ck[s], gathered,
+                                   n_chunks=K)
+            masks.append(m)
+            gs.append(g)
+        return (torch.stack(masks).cpu().numpy(),
+                torch.stack(gs).cpu().numpy())
 
 
 # --------------------------------------------------------------------------- #
@@ -251,19 +255,20 @@ def _scan_sharded_limbs(local_c: np.ndarray, queries: np.ndarray,
     pools; returns ``(local_mask (S, C, Q), gcd limbs (S, K, X, L))``."""
     _check_stacks(local=local_c, queries=queries, chunks=chunks,
                   pools=pools, cross=cross_c)
-    L = local_c.shape[2]
-    lc, qs, ck, pl = (_up(x, device) for x in (local_c, queries, chunks,
-                                               pools))
-    gathered = _up(cross_c.reshape(-1, L), device)
+    S, C, L = local_c.shape
     K = chunks.shape[1]
-    masks, gs = [], []
-    for s in range(local_c.shape[0]):
-        m, g = _one_shard_scan_limbs(lc[s], qs[s], ck[s], pl[s], gathered,
-                                     n_chunks=K)
-        masks.append(m)
-        gs.append(g)
-    return (torch.stack(masks).cpu().numpy(),
-            torch.stack(gs).cpu().numpy())
+    with kernel_scope("sharded_gcd_exchange_limbs", items=S * C):
+        lc, qs, ck, pl = (_up(x, device) for x in (local_c, queries, chunks,
+                                                   pools))
+        gathered = _up(cross_c.reshape(-1, L), device)
+        masks, gs = [], []
+        for s in range(S):
+            m, g = _one_shard_scan_limbs(lc[s], qs[s], ck[s], pl[s],
+                                         gathered, n_chunks=K)
+            masks.append(m)
+            gs.append(g)
+        return (torch.stack(masks).cpu().numpy(),
+                torch.stack(gs).cpu().numpy())
 
 
 def sharded_successor_table(registry, assigner, data_ids: Sequence[int],

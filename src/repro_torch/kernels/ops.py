@@ -3,7 +3,9 @@
 The contract of ``repro.kernels.ops``: composites are padded with 1,
 primes with 0 and gcd pairs with 0 up to the tile multiples; the values
 run as int32 when every one is <= ``2**31 - 1`` and as int64 otherwise;
-the mask is compacted on the host with ``np.nonzero``.  Inputs are
+the mask is compacted on the host with ``np.nonzero``.  Each wrapper runs
+its launch and the copy of its results to the host under
+``repro_torch.obs.profile.kernel_scope`` (the reference's names).  Inputs are
 checked for negative values on the host before upload (the CUDA kernels
 compute on unsigned words).  ``device`` (default ``"cuda"``) decides
 where the work runs: the CUDA kernels on a card, their plain PyTorch
@@ -29,6 +31,7 @@ from repro_torch.core.composite import (MAX_PRIME_LIMIT, LIMB_BASE,
                                         n_limbs_for_bits, pack_limbs,
                                         unpack_limbs)
 from repro_torch.device import resolve_device
+from repro_torch.obs.profile import kernel_scope
 
 from .factorize import (divisibility_mask, divisibility_mask_limbs,
                         factorize_limbs, factorize_squarefree)
@@ -96,10 +99,11 @@ def factorize_batch(
     n, p = comp.shape[0], pool.shape[0]
     comp_p = _pad_to(comp.astype(dt), _BLOCK_N, 1)
     pool_p = _pad_to(pool.astype(dt), _BLOCK_P, 0)
-    mask, residual = factorize_squarefree(_upload(comp_p, dev),
-                                          _upload(pool_p, dev))
-    mask = mask.cpu().numpy()[:n, :p]
-    residual = residual.cpu().numpy()[:n]
+    with kernel_scope("factorize_batch", items=n):
+        mask, residual = factorize_squarefree(_upload(comp_p, dev),
+                                              _upload(pool_p, dev))
+        mask = mask.cpu().numpy()[:n, :p]
+        residual = residual.cpu().numpy()[:n]
     factors = [[int(pool[j]) for j in np.nonzero(mask[i])[0]]
                for i in range(n)]
     return factors, residual.astype(np.int64)
@@ -124,8 +128,9 @@ def divisibility_scan(
     n, q = reg.shape[0], qs.shape[0]
     reg_p = _pad_to(reg.astype(dt), _BLOCK_N, 1)
     qs_p = _pad_to(qs.astype(dt), _BLOCK_P, 0)
-    mask = divisibility_mask(_upload(reg_p, dev), _upload(qs_p, dev))
-    mask = mask.cpu().numpy()[:n, :q]
+    with kernel_scope("divisibility_scan", items=n):
+        mask = divisibility_mask(_upload(reg_p, dev), _upload(qs_p, dev))
+        mask = mask.cpu().numpy()[:n, :q]
     return [np.nonzero(mask[:, j])[0] for j in range(q)]
 
 
@@ -146,8 +151,9 @@ def gcd_batch(
     n = aa.shape[0]
     ap = _pad_to(aa.astype(dt), _GCD_BLOCK, 0)
     bp = _pad_to(bb.astype(dt), _GCD_BLOCK, 0)
-    g = gcd(_upload(ap, dev), _upload(bp, dev))
-    return g.cpu().numpy()[:n].astype(np.int64)
+    with kernel_scope("gcd_batch", items=n):
+        g = gcd(_upload(ap, dev), _upload(bp, dev)).cpu().numpy()
+    return g[:n].astype(np.int64)
 
 
 # --------------------------------------------------------------------------- #
@@ -212,9 +218,10 @@ def divisibility_scan_limbs(
         return [np.empty(0, dtype=np.int64) for _ in range(q)]
     _check_limbs(limbs)
     _check_pool(qs)
-    mask = divisibility_mask_limbs(_upload(_pad_limb_rows(limbs), dev),
-                                   _upload(_pad_to(qs, _BLOCK_P, 0), dev))
-    mask = mask.cpu().numpy()[:n, :q]
+    with kernel_scope("divisibility_scan_limbs", items=n):
+        mask = divisibility_mask_limbs(_upload(_pad_limb_rows(limbs), dev),
+                                       _upload(_pad_to(qs, _BLOCK_P, 0), dev))
+        mask = mask.cpu().numpy()[:n, :q]
     return [np.nonzero(mask[:, j])[0] for j in range(q)]
 
 
@@ -234,10 +241,12 @@ def factorize_batch_limbs(
         return [], []
     _check_limbs(limbs)
     _check_pool(pool)
-    mask, residual = factorize_limbs(_upload(_pad_limb_rows(limbs), dev),
-                                     _upload(_pad_to(pool, _BLOCK_P, 0), dev))
-    mask = mask.cpu().numpy()[:n, :p]
-    residual = residual.cpu().numpy()[:n]
+    with kernel_scope("factorize_batch_limbs", items=n):
+        mask, residual = factorize_limbs(
+            _upload(_pad_limb_rows(limbs), dev),
+            _upload(_pad_to(pool, _BLOCK_P, 0), dev))
+        mask = mask.cpu().numpy()[:n, :p]
+        residual = residual.cpu().numpy()[:n]
     factors = [[int(pool[j]) for j in np.nonzero(mask[i])[0]]
                for i in range(n)]
     return factors, unpack_limbs(residual)
@@ -263,10 +272,12 @@ def gcd_batch_limbs(
         return []
     _check_limbs(aa, bb)
     _check_pool(pool_arr)
-    g = gcd_limbs(_upload(_pad_limb_rows(aa), dev),
-                  _upload(_pad_limb_rows(bb), dev),
-                  _upload(_pad_to(pool_arr, _BLOCK_P, 0), dev))
-    return unpack_limbs(g.cpu().numpy()[:n])
+    with kernel_scope("gcd_batch_limbs", items=n):
+        g = gcd_limbs(_upload(_pad_limb_rows(aa), dev),
+                      _upload(_pad_limb_rows(bb), dev),
+                      _upload(_pad_to(pool_arr, _BLOCK_P, 0), dev))
+        g = g.cpu().numpy()
+    return unpack_limbs(g[:n])
 
 
 def factorize_batch_exact(

@@ -7,7 +7,11 @@ async admission, preemption/resume.  ``--front-end engine`` selects the
 closed-queue ``ServingEngine`` loop instead.  Both share the PFCS paged
 KV cache backends (``--kv vec`` array-state tables by default, ``scalar``
 for the oracle, ``sharded`` for the prime-space partitioned cache whose
-registry refreshes run the CUDA discovery kernels on ``--device``).
+registry refreshes run the CUDA discovery kernels on ``--device``, and
+``elastic``, the sharded cache with live resize and shard-loss
+recovery).  ``--trace PATH`` records the observability layer (event
+ring, telemetry and the kernel ledger) and writes its export, the input
+of ``tools/trace_view.py``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --null-model \
@@ -51,6 +55,11 @@ def main(argv=None):
     ap.add_argument("--null-model", action="store_true",
                     help="no device decode: pure page-management load "
                          "generation (the only mode ported so far)")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record the observability layer (event ring + "
+                         "telemetry + kernel ledger) and write the export "
+                         "JSON here; feed it to tools/trace_view.py for a "
+                         "Chrome trace")
     ap.add_argument("--device", default="cuda",
                     help="where the discovery kernels run: 'cuda' (the "
                          "default) or 'cpu' for their plain versions")
@@ -60,6 +69,13 @@ def main(argv=None):
         raise NotImplementedError("serving a model is not ported yet "
                                   "(ROADMAP.md A.14); pass --null-model")
     vocab = 32_000
+    obs = None
+    if args.trace:
+        from repro_torch.obs import Observability, profile
+
+        obs = Observability()
+        profile.reset()
+        profile.enable(True)
 
     rng = np.random.default_rng(0)
     shared = list(rng.integers(0, vocab, size=args.shared_prefix))
@@ -73,7 +89,8 @@ def main(argv=None):
 
         machine = SlotMachine(max_batch=args.max_batch, kv=args.kv,
                               prefill_tokens=args.prefill_tokens,
-                              max_bits=args.max_bits, device=args.device)
+                              max_bits=args.max_bits, obs=obs,
+                              device=args.device)
         arrivals = poisson_arrival_ticks(len(prompts), args.arrival_rate)
         for prompt, tick in zip(prompts, arrivals):
             machine.submit(prompt, max_new_tokens=args.max_new,
@@ -106,7 +123,8 @@ def main(argv=None):
 
         engine = ServingEngine(None, None, max_batch=args.max_batch,
                                max_seq=args.max_seq, kv=args.kv,
-                               max_bits=args.max_bits, device=args.device)
+                               max_bits=args.max_bits, obs=obs,
+                               device=args.device)
         for prompt in prompts:
             engine.submit(prompt, max_new_tokens=args.max_new)
         t0 = time.time()
@@ -132,6 +150,14 @@ def main(argv=None):
             "registry_scans": st.registry_scans,
         }
         pages = engine.pages
+    if obs is not None:
+        from repro_torch.obs import profile
+
+        profile.enable(False)
+        obs.export_json(args.trace)
+        out["trace_events"] = obs.trace.total
+        print(f"observability export ({obs.trace.total} events) "
+              f"-> {args.trace}", flush=True)
     print(json.dumps(out, indent=1))
     # deterministic shared-prefix discovery demo
     if len(pages.chains) >= 2:

@@ -1,4 +1,4 @@
-"""Serving tier: PFCS page management for the decode hot path.
+"""Serving tier: PFCS page/expert management for the decode hot path.
 
   * :class:`PagedKVCache`           — scalar paged-KV page manager (the
     bit-exact oracle; per-page §4.2 scans)
@@ -6,13 +6,25 @@
     table-driven chain discovery
   * :class:`ShardedPagedKVCache`    — prime-space partitioned PFCS state;
     every registry change is rebuilt through the three CUDA kernels
+  * :class:`ElasticShardedPagedKVCache` — live resharding + shard-loss
+    recovery by re-factorization (``ServingEngine`` takes it with
+    ``kv="elastic"`` and exposes ``resize``/``fail_shard``);
+    :class:`ElasticController` drives it from fleet events
+  * :class:`ExpertCache` / :class:`VectorizedExpertCache` — the MoE
+    expert-weight tier with co-activation prefetch (the scalar oracle and
+    its array twin; ``moe="scalar"`` / ``"vec"``)
   * :class:`ServingEngine`          — continuous-batching engine over any
     of the caches (``model=None`` load-generator mode)
   * :class:`SlotMachine` / :class:`SlotOracle` — the continuous-batching
     slot machine and its per-slot Python-loop twin
 """
 
+from .elastic import (ElasticController, ElasticShardedPagedKVCache,
+                      RecoveryReport)
 from .engine import Request, ServingEngine, make_kv_backend
+from .expert_cache import (EXPERT_PARITY_COUNTERS, ExpertCache,
+                           ExpertCacheStats)
+from .expert_cache_vec import VectorizedExpertCache
 from .kv_cache import PARITY_COUNTERS, PagedKVCache, PageStats
 from .kv_cache_sharded import ShardedPagedKVCache
 from .kv_cache_vec import VectorizedPagedKVCache
@@ -20,8 +32,10 @@ from .slots import (SlotMachine, SlotOracle, SlotRequest,
                     poisson_arrival_ticks)
 
 __all__ = [
-    "Request", "ServingEngine", "make_kv_backend",
+    "Request", "ServingEngine", "make_kv_backend", "ExpertCache",
+    "ExpertCacheStats", "EXPERT_PARITY_COUNTERS", "VectorizedExpertCache",
     "PagedKVCache", "PageStats", "PARITY_COUNTERS",
     "ShardedPagedKVCache", "VectorizedPagedKVCache",
+    "ElasticShardedPagedKVCache", "ElasticController", "RecoveryReport",
     "SlotMachine", "SlotOracle", "SlotRequest", "poisson_arrival_ticks",
 ]

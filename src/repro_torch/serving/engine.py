@@ -19,12 +19,25 @@ Three cache backends (``kv=``):
     ShardedPagedKVCache`: prime-space partitioned state (``shards=N``),
     every registry change rebuilt through the divisibility, gcd and
     factorization kernels on ``device``; bit-exact against the oracle.
+  * ``"elastic"`` — :class:`~repro_torch.serving.elastic.
+    ElasticShardedPagedKVCache`: the sharded cache with live
+    ``resize(shards=)`` / ``fail_shard()`` hooks; shard-count changes
+    migrate only moved prime blocks, shard losses recover by
+    re-factorization on ``device``, and oracle parity holds across every
+    event.
+
+Two expert-cache backends for MoE workloads (``moe=``, default off):
+``"vec"`` (:class:`~repro_torch.serving.expert_cache_vec.
+VectorizedExpertCache`, array residency + table-driven co-fire discovery)
+and ``"scalar"`` (the oracle :class:`~repro_torch.serving.expert_cache.
+ExpertCache`).  With ``model=None`` the router is a deterministic
+synthetic schedule (:func:`synthetic_router_groups`), the load-generator
+mode ``repro_torch.cases.case_moe`` drives.
 
 The engine runs with ``model=None``: a pure page-management load
 generator with deterministic stub tokens, the mode the serving benchmark
-drives.  Model decode, ``kv="elastic"``, tenants, dedup and the MoE
-expert tier are still to port (ROADMAP.md A.14, A.9, A.11, A.12, A.10)
-and raise ``NotImplementedError``.
+drives.  Model decode, tenants and dedup are still to port (ROADMAP.md
+A.14, A.11, A.12) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,11 +46,17 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
+
+from .elastic import ElasticShardedPagedKVCache
+from .expert_cache import ExpertCache
+from .expert_cache_vec import VectorizedExpertCache
 from .kv_cache import PagedKVCache
 from .kv_cache_sharded import ShardedPagedKVCache
 from .kv_cache_vec import VectorizedPagedKVCache
 
-__all__ = ["Request", "ServingEngine", "make_kv_backend"]
+__all__ = ["Request", "ServingEngine", "make_kv_backend",
+           "make_expert_backend", "synthetic_router_groups"]
 
 #: stub-decode vocabulary (model=None load-generator mode)
 _STUB_VOCAB = 32_000
@@ -47,14 +66,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def check_not_ported(*, model=None, moe=None, tenants=None,
+def check_not_ported(*, model=None, tenants=None,
                      dedup: bool = False) -> None:
     """Raise ``NotImplementedError`` for a feature of ``repro``'s engines
     that the port does not have yet."""
     if model is not None:
         raise _not_ported("serving a model (model is not None)", "A.14")
-    if moe is not None:
-        raise _not_ported("the MoE expert tier (moe=)", "A.10")
     if dedup:
         raise _not_ported("cross-tenant dedup (dedup=)", "A.12")
     if tenants is not None:
@@ -69,8 +86,8 @@ def make_kv_backend(kv: str, *, hbm_pages: int, page_size: int,
     every engine front-end shares (``ServingEngine`` and the
     continuous-batching :class:`~repro_torch.serving.slots.SlotMachine`).
 
-    ``kv`` is one of ``"vec" | "scalar" | "sharded"``; ``device`` is where
-    the discovery kernels run."""
+    ``kv`` is one of ``"vec" | "scalar" | "sharded" | "elastic"``;
+    ``device`` is where the discovery kernels run."""
     check_not_ported(tenants=tenants, dedup=dedup)
     if kv == "vec":
         return VectorizedPagedKVCache(
@@ -87,9 +104,49 @@ def make_kv_backend(kv: str, *, hbm_pages: int, page_size: int,
             prefetch_budget=prefetch_budget, n_shards=shards, mesh=mesh,
             max_bits=max_bits, device=device)
     if kv == "elastic":
-        raise _not_ported("kv='elastic'", "A.9")
+        return ElasticShardedPagedKVCache(
+            hbm_pages=hbm_pages, page_size=page_size,
+            prefetch_budget=prefetch_budget, n_shards=shards, mesh=mesh,
+            max_bits=max_bits, device=device)
     raise ValueError(f"kv must be 'vec', 'scalar', 'sharded' or "
                      f"'elastic', got {kv!r}")
+
+
+def make_expert_backend(moe: Optional[str], *, moe_experts: int,
+                        moe_slots: int, moe_prefetch_budget: int,
+                        tenants=None, device="cuda"
+                        ) -> Optional[ExpertCache]:
+    """Construct an MoE expert-cache backend by name (``None`` disables
+    the tier).  Shared by every engine front-end; ``device`` is where
+    the vectorized cache's kernel discovery runs.  The tenant-partitioned
+    variants are still to port (ROADMAP.md A.11)."""
+    if moe is None:
+        return None
+    check_not_ported(tenants=tenants)
+    if moe == "vec":
+        return VectorizedExpertCache(moe_experts, hbm_slots=moe_slots,
+                                     prefetch_budget=moe_prefetch_budget,
+                                     device=device)
+    if moe == "scalar":
+        return ExpertCache(moe_experts, hbm_slots=moe_slots,
+                           prefetch_budget=moe_prefetch_budget,
+                           device=device)
+    raise ValueError(f"moe must be None, 'vec' or 'scalar', got {moe!r}")
+
+
+def synthetic_router_groups(moe_experts: int, moe_topk: int,
+                            moe_groups: int, moe_seed: int = 0):
+    """Deterministic synthetic-router group pool (model=None MoE mode):
+    a fixed set of co-activation groups with zipf-skewed expert
+    popularity.  Every engine front-end draws from the same pool, so a
+    workload replayed across engines routes identically."""
+    rng = np.random.default_rng(moe_seed)
+    pop = 1.0 / np.arange(1, moe_experts + 1, dtype=np.float64)
+    pop /= pop.sum()
+    return [tuple(int(e) for e in rng.choice(
+        moe_experts, size=min(moe_topk, moe_experts),
+        replace=False, p=pop))
+        for _ in range(max(1, moe_groups))]
 
 
 @dataclass
@@ -111,10 +168,12 @@ class ServingEngine:
                  hbm_pages: int = 256, greedy: bool = True,
                  kv: str = "vec", prefetch_budget: int = 4,
                  reread_window: int = 1, shards: int = 2, mesh="auto",
-                 moe: Optional[str] = None, tenants=None,
-                 max_bits: int = 62, dedup: bool = False, obs=None,
-                 device="cuda"):
-        check_not_ported(model=model, moe=moe, tenants=tenants, dedup=dedup)
+                 moe: Optional[str] = None, moe_experts: int = 64,
+                 moe_slots: int = 16, moe_topk: int = 4,
+                 moe_prefetch_budget: int = 4, moe_groups: int = 16,
+                 moe_seed: int = 0, tenants=None, max_bits: int = 62,
+                 dedup: bool = False, obs=None, device="cuda"):
+        check_not_ported(model=model, tenants=tenants, dedup=dedup)
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -124,16 +183,28 @@ class ServingEngine:
             prefetch_budget=prefetch_budget, shards=shards, mesh=mesh,
             max_bits=max_bits, device=device)
         self.device = self.pages.device
+        # MoE expert-weight tier; the router feed is a deterministic
+        # synthetic schedule (load-generator mode)
+        self.experts: Optional[ExpertCache] = make_expert_backend(
+            moe, moe_experts=moe_experts, moe_slots=moe_slots,
+            moe_prefetch_budget=moe_prefetch_budget, device=device)
+        # synthetic router: drawn deterministically per (request,
+        # position) — identical across cache backends AND engines
+        self._moe_groups = (synthetic_router_groups(
+            moe_experts, moe_topk, moe_groups, moe_seed)
+            if self.experts is not None else None)
         self.queue: List[Request] = []
         self.slots: List[Optional[Request]] = [None] * max_batch
         self._next_id = 0
         self.steps = 0
         self.peak_live = 0          # max concurrent requests in one step
         #: observability sink — None by default (inert); attaching one
-        #: also wires the page tier into the same event stream
+        #: also wires the page/expert tiers into the same event stream
         self.obs = obs
         if obs is not None:
             self.pages.obs = obs
+            if self.experts is not None:
+                self.experts.obs = obs
         # pages of KV context each decode step demand-reads per request:
         # the last `reread_window` pages of the chain, oldest first (paged
         # attention touches the recent context window; 1 = tail only)
@@ -143,13 +214,27 @@ class ServingEngine:
     # elastic hooks (kv="elastic")                                        #
     # ------------------------------------------------------------------ #
 
+    def _elastic_pages(self) -> ElasticShardedPagedKVCache:
+        if not isinstance(self.pages, ElasticShardedPagedKVCache):
+            raise ValueError("resize/fail_shard need kv='elastic'")
+        return self.pages
+
     def resize(self, shards: int, mesh="auto"):
-        """Live shard-count change mid-serve (not ported yet)."""
-        raise _not_ported("resize (kv='elastic')", "A.9")
+        """Live shard-count change mid-serve; returns the
+        :class:`~repro_torch.sharding.reshard.ReshardPlan` (only moved
+        blocks' registry slices migrate — placement and parity are
+        untouched)."""
+        return self._elastic_pages().resize(shards, mesh=mesh)
 
     def fail_shard(self, shard: int, recover: bool = True):
-        """Inject a shard loss mid-serve (not ported yet)."""
-        raise _not_ported("fail_shard (kv='elastic')", "A.9")
+        """Inject a shard loss mid-serve.  With ``recover=True`` the
+        dead shard's discovery state is immediately rebuilt by
+        re-factorizing surviving composites (returns the
+        :class:`~repro_torch.serving.elastic.RecoveryReport`); otherwise
+        recovery happens automatically before the next decode step."""
+        pages = self._elastic_pages()
+        pages.fail_shard(shard)
+        return pages.recover_shard(shard) if recover else None
 
     # ------------------------------------------------------------------ #
 
@@ -178,6 +263,15 @@ class ServingEngine:
         of cache state, so vec/scalar engine runs stay comparable)."""
         return (req.req_id * 7919 + len(req.generated) * 104_729) % _STUB_VOCAB
 
+    def _stub_expert_set(self, req: Request):
+        """Deterministic synthetic router draw for model=None MoE mode:
+        each (request, position) picks one of the engine's co-activation
+        groups, so the workload has learnable co-fire structure and is
+        identical across expert-cache backends."""
+        g = (req.req_id * 7919 + len(req.generated) * 104_729) \
+            % len(self._moe_groups)
+        return self._moe_groups[g]
+
     def step(self) -> Dict[str, Any]:
         """One engine tick: admit, decode one token for every live slot.
 
@@ -201,6 +295,14 @@ class ServingEngine:
             self.pages.touch_batch(touches)
         nxt_of = {i: self._stub_token(r) for i, r in live}
 
+        if self.experts is not None:
+            # the whole step's router output is ONE observe_routing + ONE
+            # activate_batch call; with the vectorized cache that means
+            # zero per-expert registry scans
+            sets = [self._stub_expert_set(r) for _, r in live]
+            self.experts.observe_routing(sets)
+            self.experts.activate_batch(sets)
+
         now = time.monotonic()
         for i, req in live:
             req.generated.append(nxt_of[i])
@@ -211,8 +313,13 @@ class ServingEngine:
                 req.done_t = now
                 self.pages.release_request(req.req_id)
                 self.slots[i] = None
+        if self.obs is not None and self.obs.telemetry is not None:
+            self.obs.telemetry.tick_engine(self)
         self.steps += 1
-        return {"live": len(live), "page_stats": self.pages.stats}
+        out = {"live": len(live), "page_stats": self.pages.stats}
+        if self.experts is not None:
+            out["expert_stats"] = self.experts.stats
+        return out
 
     def run_until_idle(self, max_steps: int = 10_000) -> List[Request]:
         done: List[Request] = []

@@ -52,10 +52,11 @@ Two implementations, differentially fuzzed against each other
     and prefetch log when driven on the same arrival trace.
 
 Both compose with every ported cache backend (``kv="vec" | "scalar" |
-"sharded"``, with ``device`` placing the discovery kernels) through the
-shared factory in ``engine.py``.  Port of ``repro.serving.slots``; the
-elastic hooks (``resize`` / ``fail_shard``), ``moe=``, ``tenants=`` and
-``dedup=`` are still to port (ROADMAP.md A.9-A.12) and raise
+"sharded" | "elastic"``, ``moe=``, with ``device`` placing the discovery
+kernels) through the shared factories in ``engine.py``; ``kv="elastic"``
+exposes the same ``resize`` / ``fail_shard`` chaos hooks as
+``ServingEngine``.  Port of ``repro.serving.slots``; ``tenants=`` and
+``dedup=`` are still to port (ROADMAP.md A.11, A.12) and raise
 ``NotImplementedError``.
 """
 
@@ -69,8 +70,10 @@ import numpy as np
 from repro_torch.obs.trace import (EV_ADMIT, EV_COMPLETE, EV_PREEMPT,
                                    EV_PREFILL_CHUNK, EV_RESUME_PREFETCH)
 
+from .elastic import ElasticShardedPagedKVCache
 from .engine import (_STUB_VOCAB, _not_ported, check_not_ported,
-                     make_kv_backend)
+                     make_expert_backend, make_kv_backend,
+                     synthetic_router_groups)
 
 __all__ = ["SlotRequest", "SlotMachine", "SlotOracle",
            "PHASE_FREE", "PHASE_PREFILL", "PHASE_DECODE",
@@ -157,7 +160,7 @@ def _ranges(starts: np.ndarray, stops: np.ndarray):
 
 class _SlotFrontEnd:
     """Shared non-hot-path plumbing: backend construction, open-loop
-    submission, and end-of-run reporting.  The
+    submission, elastic passthrough, and end-of-run reporting.  The
     per-tick scheduling itself is implemented twice — as array math in
     :class:`SlotMachine` and as per-slot loops in :class:`SlotOracle` —
     and the two are differentially fuzzed against each other."""
@@ -169,10 +172,13 @@ class _SlotFrontEnd:
                  prefetch_budget: int = 4, reread_window: int = 1,
                  prefill_tokens: int = 64, policy: str = "continuous",
                  preempt_wait: Optional[int] = None, shards: int = 2,
-                 mesh="auto", moe: Optional[str] = None, tenants=None,
+                 mesh="auto", moe: Optional[str] = None,
+                 moe_experts: int = 64, moe_slots: int = 16,
+                 moe_topk: int = 4, moe_prefetch_budget: int = 4,
+                 moe_groups: int = 16, moe_seed: int = 0, tenants=None,
                  max_bits: int = 62, dedup: bool = False, obs=None,
                  device="cuda"):
-        check_not_ported(moe=moe, tenants=tenants, dedup=dedup)
+        check_not_ported(tenants=tenants, dedup=dedup)
         if policy not in self.policy_choices:
             raise ValueError(f"policy must be one of "
                              f"{self.policy_choices}, got {policy!r}")
@@ -189,6 +195,12 @@ class _SlotFrontEnd:
             prefetch_budget=prefetch_budget, shards=shards, mesh=mesh,
             max_bits=max_bits, device=device)
         self.device = self.pages.device
+        self.experts = make_expert_backend(
+            moe, moe_experts=moe_experts, moe_slots=moe_slots,
+            moe_prefetch_budget=moe_prefetch_budget, device=device)
+        self._moe_groups = synthetic_router_groups(
+            moe_experts, moe_topk, moe_groups, moe_seed) \
+            if self.experts is not None else None
         self.requests: List[SlotRequest] = []
         self._pending: List[SlotRequest] = []    # submitted, not arrived
         self._pending_dirty = False
@@ -201,11 +213,13 @@ class _SlotFrontEnd:
         self.peak_in_flight = 0                  # waiting + occupied
         self.peak_live = 0                       # occupied slots
         #: observability sink — None by default (inert); attaching one
-        #: also wires it into the page tier so the whole stack shares a
-        #: single event stream
+        #: also wires it into the page and expert cache tiers so the
+        #: whole stack shares a single event stream
         self.obs = obs
         if obs is not None:
             self.pages.obs = obs
+            if self.experts is not None:
+                self.experts.obs = obs
 
     # ------------------------------------------------------------------ #
     # open-loop submission                                                #
@@ -243,13 +257,22 @@ class _SlotFrontEnd:
     # elastic hooks (kv="elastic")                                        #
     # ------------------------------------------------------------------ #
 
+    def _elastic_pages(self) -> ElasticShardedPagedKVCache:
+        if not isinstance(self.pages, ElasticShardedPagedKVCache):
+            raise ValueError("resize/fail_shard need kv='elastic'")
+        return self.pages
+
     def resize(self, shards: int, mesh="auto"):
-        """Live shard-count change mid-serve (not ported yet)."""
-        raise _not_ported("resize (kv='elastic')", "A.9")
+        """Live shard-count change mid-serve (returns the ReshardPlan)."""
+        return self._elastic_pages().resize(shards, mesh=mesh)
 
     def fail_shard(self, shard: int, recover: bool = True):
-        """Inject a shard loss mid-serve (not ported yet)."""
-        raise _not_ported("fail_shard (kv='elastic')", "A.9")
+        """Inject a shard loss mid-serve; recovery is immediate unless
+        ``recover=False`` (then failover-on-demand rebuilds it at the
+        next touch)."""
+        pages = self._elastic_pages()
+        pages.fail_shard(shard)
+        return pages.recover_shard(shard) if recover else None
 
     # ------------------------------------------------------------------ #
     # driving                                                             #
@@ -500,8 +523,15 @@ class SlotMachine(_SlotFrontEnd):
         if items:
             self.tier_log.extend(self.pages.touch_batch(items))
 
-        # -- token bookkeeping ------------------------------------------- #
+        # -- token + MoE bookkeeping ------------------------------------- #
         if len(d_idx):
+            if self.experts is not None:
+                g = (d_reqs.astype(np.int64) * 7919
+                     + self.gen[d_idx].astype(np.int64) * 104_729) \
+                    % len(self._moe_groups)
+                sets = [self._moe_groups[i] for i in g.tolist()]
+                self.experts.observe_routing(sets)
+                self.experts.activate_batch(sets)
             first = d_idx[self.gen[d_idx] == 0]
             for i in first:
                 self.requests[int(self.slot_req[i])].first_tick = t
@@ -526,8 +556,11 @@ class SlotMachine(_SlotFrontEnd):
         self._note_tick()
         self.now += 1
         self.ticks += 1
-        return {"live": int(occ.sum()), "waiting": len(self.waiting),
-                "page_stats": self.pages.stats}
+        out = {"live": int(occ.sum()), "waiting": len(self.waiting),
+               "page_stats": self.pages.stats}
+        if self.experts is not None:
+            out["expert_stats"] = self.experts.stats
+        return out
 
 
 class SlotOracle(_SlotFrontEnd):
@@ -649,7 +682,16 @@ class SlotOracle(_SlotFrontEnd):
         if items:
             self.tier_log.extend(self.pages.touch_batch(items))
 
-        # token bookkeeping
+        # token + MoE bookkeeping
+        if decode_slots and self.experts is not None:
+            sets = []
+            for i in decode_slots:
+                req = self.slots[i]
+                g = (req.req_id * 7919 + len(req.generated) * 104_729) \
+                    % len(self._moe_groups)
+                sets.append(self._moe_groups[g])
+            self.experts.observe_routing(sets)
+            self.experts.activate_batch(sets)
         for i in decode_slots:
             req = self.slots[i]
             if not req.generated:
@@ -671,5 +713,8 @@ class SlotOracle(_SlotFrontEnd):
         self.now += 1
         self.ticks += 1
         live = sum(s is not None for s in self.slots)
-        return {"live": live, "waiting": len(self.waiting),
-                "page_stats": self.pages.stats}
+        out = {"live": live, "waiting": len(self.waiting),
+               "page_stats": self.pages.stats}
+        if self.experts is not None:
+            out["expert_stats"] = self.experts.stats
+        return out

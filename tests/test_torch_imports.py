@@ -24,7 +24,12 @@ from repro_torch.core.engine.tables import (make_pfcs_cache, pfcs_tables,
                                             related_bulk, successor_table)
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.serving.engine import ServingEngine, make_kv_backend
+from repro_torch.cases import case_elastic, case_moe, case_serving
+from repro_torch.serving.elastic import ElasticShardedPagedKVCache
+from repro_torch.serving.engine import (ServingEngine, make_expert_backend,
+                                        make_kv_backend)
+from repro_torch.serving.expert_cache import ExpertCache
+from repro_torch.serving.expert_cache_vec import VectorizedExpertCache
 from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
 from repro_torch.serving.kv_cache_vec import VectorizedPagedKVCache
@@ -79,6 +84,15 @@ ENTRY_POINTS = {
     "PagedKVCache": _cache(PagedKVCache),
     "VectorizedPagedKVCache": _cache(VectorizedPagedKVCache),
     "ShardedPagedKVCache": _cache(ShardedPagedKVCache),
+    "ElasticShardedPagedKVCache": _cache(ElasticShardedPagedKVCache),
+    "ExpertCache": lambda **kw: ExpertCache(8, hbm_slots=2, **kw),
+    "VectorizedExpertCache": lambda **kw: VectorizedExpertCache(
+        8, hbm_slots=2, discover="kernel", **kw),
+    "make_expert_backend": lambda **kw: make_expert_backend(
+        "vec", moe_experts=8, moe_slots=2, moe_prefetch_budget=1, **kw),
+    "case_serving": lambda **kw: case_serving(smoke=True, **kw),
+    "case_elastic": lambda **kw: case_elastic(smoke=True, **kw),
+    "case_moe": lambda **kw: case_moe(smoke=True, **kw),
     "successor_table": lambda **kw: successor_table(
         *_registry(), [0], discover="kernel", **kw),
     "sharded_successor_table": lambda **kw: sharded_successor_table(
@@ -127,19 +141,12 @@ def test_default_device_needs_a_card(name, monkeypatch, capsys):
 
 
 NOT_PORTED = {
-    "kv=elastic": (lambda: ServingEngine(None, None, kv="elastic",
-                                         device="cpu"), "A.9"),
     "tenants": (lambda: ServingEngine(None, None, tenants=2, device="cpu"),
                 "A.11"),
     "dedup": (lambda: SlotMachine(dedup=True, device="cpu"), "A.12"),
-    "moe": (lambda: SlotMachine(moe="vec", device="cpu"), "A.10"),
     "model": (lambda: ServingEngine(object(), None, device="cpu"), "A.14"),
     "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
              "A.8"),
-    "resize": (lambda: SlotMachine(kv="sharded", device="cpu").resize(4),
-               "A.9"),
-    "fail_shard": (lambda: ServingEngine(None, None, kv="sharded",
-                                         device="cpu").fail_shard(0), "A.9"),
     "serve model": (lambda: serve.main(["--device", "cpu"]), "A.14"),
 }
 
@@ -183,14 +190,9 @@ PORT_ADDITIONS = {
     "serving": {"make_kv_backend"},
 }
 #: the reference's exports the port does not have yet, by the ROADMAP.md
-#: queue A item that ports them (``obs``: the whole package, A.13)
+#: queue A item that ports them
 NOT_YET = {
-    "obs": "A.13",
     "serving": {
-        "A.9": {"ElasticController", "ElasticShardedPagedKVCache",
-                "RecoveryReport"},
-        "A.10": {"EXPERT_PARITY_COUNTERS", "ExpertCache", "ExpertCacheStats",
-                 "VectorizedExpertCache"},
         "A.12": {"DEDUP_COUNTERS", "DedupElasticShardedPagedKVCache",
                  "DedupOracle", "DedupShardedPagedKVCache",
                  "DedupVectorizedPagedKVCache"},
@@ -636,8 +638,11 @@ def _count_plain_launches(monkeypatch, names):
     from repro_torch import kernels
     from repro_torch.kernels import engine, factorize
 
+    from repro_torch.kernels import gcd
+
     plain = {"divisibility_mask": (factorize, "divisibility_mask_ref"),
              "factorize_squarefree": (factorize, "factorize_squarefree_ref"),
+             "gcd": (gcd, "gcd_ref"),
              "engine_baseline": (engine, "baseline_scan_ref"),
              "engine_pfcs": (engine, "pfcs_scan_ref")}
     for name in names:
@@ -890,3 +895,112 @@ def test_chip_smoke_engine_work_counts_the_algorithm(monkeypatch):
         (len(traces),), 10**9, dtype=torch.int64)))
     first = chip_smoke.engine_bound(call)
     assert first == chip_smoke.engine_bound(again) and first["work"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# chip_smoke.py: the elastic, MoE and observability phases                   #
+# --------------------------------------------------------------------------- #
+
+def _bench(name):
+    with open(os.path.join(ROOT, name)) as f:
+        return json.load(f)
+
+
+def test_chip_smoke_elastic_phase_on_cpu(monkeypatch):
+    """``elastic`` on the CPU with its full run cut to the smoke
+    configuration (``ELASTIC_FULL`` set to the smoke counters): the smoke
+    run matches ``BENCH_case_elastic.json``, the three flat kernels
+    launch and are held against their plain versions at every shape, the
+    time split covers the elastic refresh and its recoveries, and a
+    recorded counter that is off fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, ["divisibility_mask",
+                                        "factorize_squarefree", "gcd"])
+    from repro_torch import cases
+
+    orig = cases.case_elastic
+    monkeypatch.setattr(cases, "case_elastic",
+                        lambda smoke, device: orig(True, device))
+    bench = _bench("BENCH_case_elastic.json")
+    monkeypatch.setattr(chip_smoke, "ELASTIC_FULL", {
+        k: bench[k] for k in chip_smoke.ELASTIC_FULL})
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    out = chip_smoke.phase_elastic(chip_smoke.Context())
+    assert out["n_recoveries"] == 9 and out["moved_blocks"] == 2116
+    assert all(out["launches"][k] > 0 for k in chip_smoke.FLAT)
+    checked = [ln["name"] for ln in lines if ln["phase"] == "kernel_elastic"]
+    assert sorted(checked) == sorted(chip_smoke.FLAT)
+    split = out["sharded_time_split"]
+    assert split["refresh_s"] > split["kernel_calls_s"] > 0
+    assert split["launches_outside_kernel_calls"] == 0
+    monkeypatch.setattr(chip_smoke, "ELASTIC_FULL",
+                        dict(chip_smoke.ELASTIC_FULL, refactorized=1))
+    with pytest.raises(AssertionError, match="refactorized"):
+        chip_smoke.phase_elastic(chip_smoke.Context())
+
+
+def test_chip_smoke_moe_phase_on_cpu(monkeypatch):
+    """``moe`` on the CPU with its full schedule cut to the smoke one
+    (``MOE_FULL`` set to the smoke counters): the kernel-discovery run
+    equals the incremental run, launches the flat mask and factorization
+    (held against their plain versions), and a recorded counter that is
+    off fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, ["divisibility_mask",
+                                        "factorize_squarefree", "gcd"])
+    from repro_torch import cases
+
+    orig_case, orig_schedule = cases.case_moe, cases.moe_schedule
+    monkeypatch.setattr(cases, "case_moe",
+                        lambda smoke, device, real_router=None:
+                        orig_case(True, device=device))
+    monkeypatch.setattr(cases, "moe_schedule", lambda smoke: orig_schedule(
+        True))
+    bench = _bench("BENCH_case_moe.json")
+    want = {k: {key: bench[key][k] for key in (
+        "hbm_hit_rate", "demand_misses", "prefetch_precision",
+        "registry_scans")} for k in ("pfcs_vec", "pfcs_scalar", "lru")}
+    want["engine_loadgen"] = bench["engine_loadgen"]
+    monkeypatch.setattr(chip_smoke, "MOE_FULL", want)
+    out = chip_smoke.phase_moe(chip_smoke.Context())
+    kd = out["kernel_discover"]
+    assert kd["bulk_refreshes"] > 0 and kd["prefetches_logged"] > 0
+    assert kd["launches"]["divisibility_mask"] > 0
+    assert kd["launches"]["factorize_squarefree"] > 0
+    want["lru"]["demand_misses"] += 1
+    with pytest.raises(AssertionError, match="lru.demand_misses"):
+        chip_smoke.phase_moe(chip_smoke.Context())
+
+
+def test_chip_smoke_obs_phase_on_cpu(monkeypatch, tmp_path):
+    """``obs`` on the CPU: the golden twin streams agree, the ledger's
+    calls equal the (plain, counted) launches, tracing is inert, and the
+    launcher's export converts; a ledger that misses a call fails."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, ["divisibility_mask",
+                                        "factorize_squarefree", "gcd"])
+    monkeypatch.setattr(chip_smoke, "OBS_TRACE", str(tmp_path / "t.json"))
+    out = chip_smoke.phase_obs(chip_smoke.Context())
+    assert out["golden_events"]["sharded"] > 0
+    assert set(out["inert"]) == {f"{c}/{kv}" for c in ("SlotMachine",
+                                                         "SlotOracle")
+                                 for kv in ("sharded", "elastic")}
+    assert out["launcher"]["completed"] == 256
+    assert {"i", "C", "X", "M"} <= set(out["trace_view_phases"])
+    assert out["launches"]["factorize_squarefree"] > 0
+    ledger = {k: dict(v) for k, v in out["ledger"].items()}
+    ledger["gcd_batch"] = {"calls": 1}
+    assert chip_smoke.ledger_failures(ledger, out["launches"], 2)
+
+
+def test_chip_smoke_golden_arrivals_are_the_tests():
+    """``chip_smoke.spec_arrivals`` rebuilds ``tests/test_obs.py``'s
+    golden and sweep traces without importing the tests."""
+    from strategies import ArrivalSpec, build_poisson_arrivals
+
+    chip_smoke = _chip_smoke()
+    for spec in (chip_smoke.GOLDEN_SPEC, chip_smoke.SWEEP_SPEC):
+        want = [(t, p, n) for t, p, n, _ in build_poisson_arrivals(
+            ArrivalSpec(**spec))]
+        assert chip_smoke.spec_arrivals(spec) == want

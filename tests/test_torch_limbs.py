@@ -1033,11 +1033,21 @@ def _registry_state(reg):
 
 
 def test_case_scale_reduced_matches_reference_recipe():
+    from repro.obs import profile as ref_profile
+
     n_chains, depth = 160, 20
-    want, rreg, _, _, _ = _ref_case_scale(n_chains, depth)
+    with ref_profile.profiling():
+        want, rreg, _, _, _ = _ref_case_scale(n_chains, depth)
+        ref_ledger = {k: (v["calls"], v["items"])
+                      for k, v in ref_profile.summary().items()}
     got = case_scale(n_chains, depth, device="cpu")
-    assert {k: v for k, v in got.items() if not k.endswith("_wall_s")} == \
-        want
+    assert {k: v for k, v in got.items()
+            if k != "obs" and not k.endswith("_wall_s")} == want
+    # the reference's obs block: the kernel ledger of the same calls, and
+    # the registry loop's rate
+    assert {k: (v["calls"], v["items"]) for k, v in
+            got["obs"]["kernel_launches"].items()} == ref_ledger
+    assert got["obs"]["registry_build"]["n"] == n_chains
     assert got["n_wide_composites"] > 0
     assert got["verify"]["scan_hits"] > 0
     assert got["verify"]["gcd_nontrivial"] > 0
