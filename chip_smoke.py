@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
 It puts ``<root>/src`` on ``sys.path`` itself, builds the port's eight
 CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process
 per source, started together), and drives the port's serving path
-(with its elastic cache, its MoE expert tier and its observability
-layer), its wide (multi-limb) path and its Table-1 trace engine on the
+(with its elastic cache, its MoE expert tier, its observability layer,
+its multi-tenant QoS tier and its cross-tenant dedup), its wide (multi-limb) path and its Table-1 trace engine on the
 card in phases, each printing one JSON line with its seconds (the sharded
 and elastic runs also report where their wall time went,
 ``sharded_time_split``):
@@ -85,6 +85,27 @@ and elastic runs also report where their wall time went,
                  launch counters, placement unchanged by a zero-capacity
                  or a live tracer, and the launcher with ``--kv elastic
                  --trace`` (its export converted by ``tools/trace_view.py``);
+  tenancy        ``repro_torch.cases.case_tenancy``: smoke against
+                 ``BENCH_case_tenancy.json``, full (1 hot, 6 cold and 1
+                 scanner tenants, 128 HBM pages, 64 slots; the case
+                 asserts vec and scalar bit-exact per tenant, isolation,
+                 quotas) against ``TENANCY_FULL``; the full traffic again
+                 through ``kv="sharded"`` and ``"elastic"``: every tier,
+                 counter, per-tenant counter, log and occupancy equal to
+                 the vec run's, ``check_isolation`` green, the mask and
+                 the gcd exchange held against their plain versions at
+                 every shape (timed on the sharded run);
+  dedup          ``repro_torch.cases.case_dedup``: smoke against
+                 ``BENCH_case_dedup.json``, full (6 tenants x 10 requests
+                 sharing two system prompts) against ``DEDUP_FULL``, its
+                 admission probes' gcd and factorization held against
+                 their plain versions and timed; the full trace through
+                 ``SlotMachine`` with ``kv="sharded"`` and ``"elastic"``
+                 and with ``kv="vec"`` at 128 bits (the probes take the
+                 limb gcd and factorization): counters, tier log,
+                 refcount state and every request's timings equal to the
+                 narrow vec run's, isolation green, every kernel held
+                 against its plain version at every shape;
   scale          ``case_scale`` at its published size (1M elements, 10,000
                  chains 100 deep, 1024-bit chunks: 32 limbs) through
                  ``repro_torch.cases``, against every deterministic key of
@@ -127,8 +148,9 @@ and elastic runs also report where their wall time went,
                  naming where the kernel kept its state;
   table1         the paper's Table 1 at ``benchmarks/table1.py``'s
                  configuration, unreduced (three workloads, three trials
-                 each): every system through ``simulate_batch`` on the
-                 card, PFCS's tables from ``discover="kernel"``; every
+                 each), through ``repro_torch.cases.run_table1``: every
+                 engine system through ``simulate_batch`` on the card,
+                 PFCS's tables from ``discover="kernel"``; its rows; every
                  baseline trace's counters equal to the scalar oracle,
                  every PFCS trace's to the oracle's recorded in
                  ``TABLE1_PFCS`` (and to the oracle run on hft's trial 0,
@@ -185,9 +207,9 @@ and exits 2.
     python3 chip_smoke.py --compare-engine DIR [--rounds 2]
 
 runs none of that: it times the Table-1 engine kernels of the port in
-``DIR`` (holding its ``src``, e.g. ``git archive <commit> src`` unpacked)
-against this tree's, each tree in processes of its own, in turns
-(``compare_engine``).
+``DIR`` (holding its ``src``, e.g. ``git archive <commit> src`` unpacked,
+of a tree whose ``repro_torch.cases`` has ``run_table1``) against this
+tree's, each tree in processes of its own, in turns (``compare_engine``).
 """
 
 from __future__ import annotations
@@ -251,18 +273,10 @@ ENGINE = [name for name, _, _ in ENGINE_KERNELS]
 #: the engine's systems: the baselines (``engine_baseline``) and PFCS
 BASELINES = ("lru", "fifo", "2q", "arc", "lirs")
 
-#: ``benchmarks/table1.py``'s level capacities and workloads (lines
-#: 27-55), unreduced, and its documented ``--trials 3`` (seeds 0-2)
-TABLE1_CAPS = (("L1", 64), ("L2", 256), ("L3", 2048))
+#: ``benchmarks/table1.py``'s documented ``--trials 3`` (seeds 0-2); its
+#: level capacities and workloads are ``repro_torch.cases.TABLE1_CAPS`` and
+#: ``table1_workloads()``, which ``run_table1`` runs
 TABLE1_TRIALS = 3
-TABLE1_WORKLOADS = {
-    "db_join": ("db_join_trace", dict(n_orders=4000, n_customers=600,
-                                      n_items=1200, n_queries=20000)),
-    "ml_epoch": ("ml_epoch_trace", dict(n_samples=2500, n_feature_rows=600,
-                                        n_epochs=3)),
-    "hft": ("hft_trace", dict(n_instruments=2500, n_corr_groups=350,
-                              n_events=20000)),
-}
 #: seed-0 hits / demand accesses of each workload and system, from the
 #: scalar oracles (``simulate_baseline``, ``simulate_pfcs``)
 TABLE1_SEED0 = {
@@ -308,6 +322,36 @@ ELASTIC_FULL = dict(n_resizes=16, n_recoveries=13, moved_blocks=12_727,
 #: ``case_moe``'s counters at its full configuration with the synthetic
 #: router (4096 experts, 256 hot, 64 HBM slots, top-8, 1000 x 8 router
 #: sets), from the reference's own case (``tests/test_torch_cases.py``)
+#: ``case_tenancy``'s BENCH keys at its full configuration (1 hot, 6 cold
+#: and 1 scanner tenants, 128 HBM pages, 64 slots), from the reference's
+#: own case (``tests/test_torch_cases.py`` holds them to it)
+TENANCY_FULL = {
+    "completed": 112, "cross_tenant_prefetches": 0,
+    "isolation_composites": 764, "registry_scans": 0,
+    "protection": {"quota_hit": 0.8666666666666667, "shared_hit": 0.0},
+    "quota": [44, 12, 12, 12, 12, 12, 12, 12],
+    "tenant_evictions": [88, 1140, 1044, 1092, 1092, 1140, 1140, 1008],
+    "tenant_hit_rate": [0.9388020833333334, 0.5, 0.5, 0.5, 0.5, 0.5, 0.5,
+                        0.5572916666666666],
+}
+#: ``case_dedup``'s BENCH keys at its full configuration (6 tenants x 10
+#: requests, two 64-token system prompts, 84 HBM pages), from the
+#: reference's own case (``tests/test_torch_cases.py``)
+DEDUP_FULL = {
+    "completed": 60,
+    "counters": {"cow_copies": 58, "dedup_hits": 896, "dedup_promotions": 32,
+                 "evictions": 103, "hbm_hits": 1075, "host_hits": 0,
+                 "misses": 60, "prefetch_hits": 117, "prefetches": 119,
+                 "shared_prefix_pages": 896},
+    "dedup_probes": 54, "dedup_state_refs": {},
+    "hbm_pages_per_user_dedup": [12.0] * 6,
+    "hbm_pages_per_user_nodedup": [14.0] * 6,
+    "n_shared_composites": 88, "shared_occupancy": 4,
+    "ttft_ticks": {"dedup": {"50": 45.5, "95": 74.05, "99": 77.41},
+                   "nodedup": {"50": 286.0, "95": 507.84999999999997,
+                               "99": 535.6899999999999}},
+    "unique_pages": {"dedup": 207, "nodedup": 335},
+}
 MOE_FULL = {
     "pfcs_vec": dict(hbm_hit_rate=0.81759375, demand_misses=11_674,
                      prefetch_precision=1.0, registry_scans=0),
@@ -955,20 +999,23 @@ class Timers:
     inside the other) and, within it, the calls that upload to the card,
     launch the kernels and read the results back (``kernel_calls_s``: the
     per-shard scan with its mask and gcd kernels, flat or limb, and the
-    squarefree decode, also the recovery's; neither calls the other), and
-    the kernel launches made inside those calls
+    squarefree decode, also the recovery's; neither calls the other);
+    outside the refresh, the same calls of a dedup admission probe (its
+    batched gcd and decode, the names ``serving/kv_cache_vec.py`` calls:
+    ``probe_calls_s``); and the kernel launches made inside either
     (``kernel_calls_launches``).  What remains of the refresh is host
-    Python; what remains of the run is the tick loop."""
+    Python; what remains of the run is the tick loop and the probes."""
 
     def __init__(self):
         from repro_torch import kernels
         from repro_torch.core.engine import shard
         from repro_torch.kernels import ops
+        from repro_torch.serving import kv_cache_vec
         from repro_torch.serving.elastic import ElasticShardedPagedKVCache
         from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
 
         self.seconds = {"refresh_s": 0.0, "kernel_calls_s": 0.0,
-                        "kernel_calls_launches": 0}
+                        "probe_calls_s": 0.0, "kernel_calls_launches": 0}
         self._launches = lambda: sum(kernels.launch_counts().values())
         self._depth = dict.fromkeys(self.seconds, 0)
         self._undo = []
@@ -978,6 +1025,8 @@ class Timers:
         self._wrap(shard, "_scan_sharded", "kernel_calls_s")
         self._wrap(shard, "_scan_sharded_limbs", "kernel_calls_s")
         self._wrap(ops, "factorize_batch_exact", "kernel_calls_s")
+        for name in ("gcd_batch", "gcd_batch_limbs", "factorize_batch_exact"):
+            self._wrap(kv_cache_vec, name, "probe_calls_s")
 
     def _wrap(self, owner, name, key):
         orig = getattr(owner, name)
@@ -992,7 +1041,7 @@ class Timers:
             finally:
                 self._depth[key] -= 1
                 self.seconds[key] += time.perf_counter() - t0
-                if key == "kernel_calls_s":
+                if key != "refresh_s":
                     self.seconds["kernel_calls_launches"] += (
                         self._launches() - n0)
 
@@ -1148,7 +1197,8 @@ def time_split(wall_s: float, seconds: dict, launches: dict,
             - seconds["kernel_calls_s"],
             "outside_refresh_s": wall_s - seconds["refresh_s"],
             "launches_outside_kernel_calls": total - inside,
-            "device_busy_upper_share": (seconds["kernel_calls_s"] / wall_s
+            "device_busy_upper_share": ((seconds["kernel_calls_s"]
+                                         + seconds["probe_calls_s"]) / wall_s
                                         if inside == total else None),
             "device_ms_by_kernel": per_kernel,
             "device_busy_graph_est_s": est,
@@ -1746,6 +1796,175 @@ def phase_obs(ctx: Context) -> dict:
                                                   "trace_events")},
             "trace_view_events": len(chrome["traceEvents"]),
             "trace_view_phases": phases}
+
+
+# --------------------------------------------------------------------------- #
+# multi-tenant QoS and cross-tenant dedup                                     #
+# --------------------------------------------------------------------------- #
+
+#: the kernels the tenanted sharded and elastic refreshes launch: the scan
+#: and the gcd exchange.  ``case_tenancy``'s tenant stripes fall inside the
+#: shard stripes (each of its 4 or 8 tenants' blocks lies in one of the two
+#: shards), so no chain edge crosses shards, every exchanged gcd is 1 and
+#: nothing is left to factorize
+TENANCY_SHARDED = ["divisibility_mask", "gcd"]
+
+
+def _kernel_summary(rows: list) -> dict:
+    """The distinct shapes and dtypes each kernel was checked at."""
+    return {r["name"]: r["shapes_checked"] for r in rows}
+
+
+def phase_tenancy(ctx: Context) -> dict:
+    """``case_tenancy`` on the card: its smoke configuration against
+    ``BENCH_case_tenancy.json``, its full one (the case's own asserts:
+    vec and scalar bit-exact globally and per tenant, no cross-tenant
+    prefetch, occupancy within quota, isolation) against
+    ``TENANCY_FULL``; then the full traffic through ``kv="sharded"`` and
+    ``kv="elastic"`` (two shards), whose every registry refresh rebuilds
+    the successor table through the flat mask and the gcd exchange
+    (``TENANCY_SHARDED``):
+    counters, per-tenant counters, every touch's tier, the prefetch log,
+    the per-tenant logs and the occupancy equal the vec run's,
+    ``check_isolation`` holds over the final registry, and each kernel is
+    held against its plain version at every shape it launched at (timed
+    on the sharded run)."""
+    from repro_torch.cases import (TENANCY_TRAIL, bench_payload,
+                                   case_tenancy, check_tenancy, tenancy_run)
+
+    smoke, s_launches, s_cap, _ = traced(case_tenancy, smoke=True,
+                                         device=DEVICE)
+    failures = bench_failures("BENCH_case_tenancy.json",
+                              bench_payload("case_tenancy", smoke))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    check_path("tenancy_smoke", s_launches, s_cap.inputs, timed=False,
+               required=(), shape_launches=s_cap.launches)
+    vec = tenancy_run("vec", smoke=False, device=DEVICE)
+    trail = {k: vec[k] for k in TENANCY_TRAIL}
+    scalar = tenancy_run("scalar", smoke=False, device=DEVICE)
+    walls = {"vec": vec["wall_s"], "scalar": scalar["wall_s"]}
+    full = check_tenancy({"pfcs_vec": vec, "pfcs_scalar": scalar},
+                         smoke=False, device=DEVICE)
+    payload = bench_payload("case_tenancy", full)
+    bad = counter_failures("case_tenancy", TENANCY_FULL, payload)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    out = {"matches": ["BENCH_case_tenancy.json", "TENANCY_FULL"],
+           "smoke_launches": s_launches, "full": payload,
+           "fairness_ratio": full["fairness_ratio"]}
+    for kv in ("sharded", "elastic"):
+        run, launches, cap, seconds = traced(tenancy_run, kv, smoke=False,
+                                             device=DEVICE)
+        walls[kv] = run["wall_s"]
+        diff = [k for k in TENANCY_TRAIL if run[k] != trail[k]]
+        if diff:
+            raise AssertionError(f"tenancy kv={kv!r} diverged from kv='vec': "
+                                 f"{diff}")
+        pages = run["_pages"]
+        rep = pages.namespace.check_isolation(pages.registry)
+        if (not rep.ok or run["cross_tenant_prefetches"]
+                or not run["occupancy_ok"]):
+            raise AssertionError(f"tenancy kv={kv!r}: isolation or quota "
+                                 f"broken: {rep.violations[:4]}")
+        rows = check_path(f"tenancy_{kv}", launches, cap.inputs,
+                          timed=kv == "sharded", required=TENANCY_SHARDED,
+                          shape_launches=cap.launches)
+        out[kv] = {"launches": launches,
+                   "shapes_checked": _kernel_summary(rows),
+                   "bulk_refreshes": pages.bulk_refreshes,
+                   "isolation_composites": rep.n_composites,
+                   "time_split": time_split(run["wall_s"], seconds,
+                                            launches, rows)}
+    out["wall_s"] = walls
+    return out
+
+
+def phase_dedup(ctx: Context) -> dict:
+    """``case_dedup`` on the card: its smoke configuration against
+    ``BENCH_case_dedup.json``; its full one (the case's asserts: the
+    dedup slot machine bit-exact against the scalar oracle on
+    ``DEDUP_COUNTERS``, tier log and refcount state, isolation green with
+    shared composites, dedup lowering HBM pages per user and the median
+    TTFT) against ``DEDUP_FULL``.  Every admission with a live
+    co-referencing request probes ``shared_prefix`` (the gcd and the
+    squarefree factorization on the card).  Then the full trace through
+    ``SlotMachine`` with ``kv="sharded"`` and ``"elastic"`` (their refreshes
+    launch the flat mask too) and with ``kv="vec"`` at ``max_bits`` 128
+    (its probes launch the limb gcd): counters, tier log, refcount state
+    and every request's timings equal the narrow vec run's, isolation
+    green; each kernel held against its plain version at every shape
+    (timed but on the elastic run)."""
+    from repro_torch.cases import (bench_payload, case_dedup, check_dedup,
+                                   dedup_run, dedup_trace)
+
+    smoke, s_launches, s_cap, _ = traced(case_dedup, smoke=True,
+                                         device=DEVICE)
+    failures = bench_failures("BENCH_case_dedup.json",
+                              bench_payload("case_dedup", smoke))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    check_path("dedup_smoke", s_launches, s_cap.inputs, timed=False,
+               required=["gcd", "factorize_squarefree"],
+               shape_launches=s_cap.launches)
+    tr = dedup_trace(smoke=False)
+    keys = ("counters", "tier_log", "dedup_state", "timings")
+
+    def full_runs():
+        return {"dedup_vec": dedup_run(tr, "SlotMachine", "vec", True,
+                                       device=DEVICE),
+                "dedup_scalar": dedup_run(tr, "SlotOracle", "scalar", True,
+                                          device=DEVICE),
+                "nodedup_vec": dedup_run(tr, "SlotMachine", "vec", False,
+                                         device=DEVICE)}
+
+    res, launches, cap, seconds = traced(full_runs)
+    trail = {k: res["dedup_vec"][k] for k in keys}
+    walls = {k: r["wall_s"] for k, r in res.items()}
+    full = check_dedup(res, tr, smoke=False)
+    payload = bench_payload("case_dedup", full)
+    bad = counter_failures("case_dedup", DEDUP_FULL, payload)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    rows = check_path("dedup", launches, cap.inputs,
+                      required=["gcd", "factorize_squarefree"],
+                      shape_launches=cap.launches)
+    out = {"matches": ["BENCH_case_dedup.json", "DEDUP_FULL"],
+           "smoke_launches": s_launches, "launches": launches,
+           "shapes_checked": _kernel_summary(rows), "full": payload,
+           "probes": full["dedup_vec"]["dedup_probes"],
+           # the probes' kernels run in the dedup_vec run alone
+           "dedup_vec_time_split": time_split(walls["dedup_vec"], seconds,
+                                              launches, rows)}
+    for kv, max_bits, required in (
+            ("sharded", 62, FLAT), ("elastic", 62, FLAT),
+            ("vec", 128, ["gcd_limbs"])):
+        label = f"dedup_{kv}" + ("_128" if max_bits > 62 else "")
+        run, launches, cap, seconds = traced(
+            dedup_run, tr, "SlotMachine", kv, True, max_bits=max_bits,
+            device=DEVICE)
+        walls[label] = run["wall_s"]
+        diff = [k for k in keys if run[k] != trail[k]]
+        if diff:
+            raise AssertionError(f"{label} diverged from the narrow kv='vec' "
+                                 f"run: {diff}")
+        pages = run["_pages"]
+        rep = pages.namespace.check_isolation(pages.registry)
+        if not rep.ok or run["cross_tenant_prefetches"]:
+            raise AssertionError(f"{label}: isolation broken: "
+                                 f"{rep.violations[:4]}")
+        rows = check_path(label, launches, cap.inputs,
+                          timed=kv != "elastic", required=required,
+                          shape_launches=cap.launches)
+        out[label] = {"launches": launches,
+                      "shapes_checked": _kernel_summary(rows),
+                      "probes": run["dedup_probes"],
+                      "bulk_refreshes": getattr(pages, "bulk_refreshes",
+                                                None),
+                      "time_split": time_split(run["wall_s"], seconds,
+                                               launches, rows)}
+    out["wall_s"] = walls
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2517,44 +2736,36 @@ def pfcs_counters(st) -> tuple:
             st.prefetches_true)
 
 
-def table1_runs(engine_cap) -> dict:
-    """Each Table-1 workload's three traces (PFCS's tables built by
-    ``discover="kernel"``) through every system with ``simulate_batch``,
-    one engine launch each: ``{workload: (traces, tables, table build s,
-    {system: (stats, wall s, engine_cap's call)})}``."""
-    from repro_torch.core.engine import pfcs_tables, simulate_batch
-    from repro_torch.core.engine.batch import key_space
+def table1_runs(engine_cap):
+    """``repro_torch.cases.run_table1`` over ``TABLE1_TRIALS`` trials of
+    each Table-1 workload with every engine system (PFCS's tables built by
+    ``discover="kernel"``), one engine launch a system and workload:
+    ``({workload: (traces, tables, table build s, {system: (stats, wall
+    s, engine_cap's call)})}, the table's rows)``."""
+    from repro_torch.cases import run_table1
 
+    systems = BASELINES + ("pfcs",)
+    n_calls = len(engine_cap.calls)
+    table = run_table1(TABLE1_TRIALS, 0, DEVICE, systems=systems,
+                       discover="kernel")
+    calls = iter(engine_cap.calls[n_calls:])
     results = {}
-    for wname, (gen, kw) in TABLE1_WORKLOADS.items():
-        traces = [_make_trace(gen, seed=s, **kw)
-                  for s in range(TABLE1_TRIALS)]
-        n_keys = key_space(traces)
-        t0 = time.perf_counter()
-        tables = [pfcs_tables(tr, TABLE1_CAPS, discover="kernel",
-                              n_keys=n_keys, device=DEVICE)
-                  for tr in traces]
-        table_s = time.perf_counter() - t0
-        per = {}
-        for system in BASELINES + ("pfcs",):
-            n_calls = len(engine_cap.calls)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stats = simulate_batch(
-                traces, system, TABLE1_CAPS, device=DEVICE,
-                tables=tables if system == "pfcs" else None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            per[system] = (stats, wall, engine_cap.calls[n_calls])
-        results[wname] = (traces, tables, table_s, per)
-    return results
+    for wname, run in table["_runs"].items():
+        per = {system: (run["stats"][system], run["wall_s"][system],
+                        next(calls)) for system in systems}
+        results[wname] = (run["traces"], run["tables"], run["table_s"], per)
+    if next(calls, None) is not None:
+        raise AssertionError("table1: more engine calls than runs")
+    return results, {k: v for k, v in table.items()
+                     if not k.startswith("_")}
 
 
 def phase_table1(ctx: Context) -> dict:
     """The paper's Table 1 on the card at ``benchmarks/table1.py``'s
-    configuration, unreduced: each workload's three trials (seeds 0-2)
-    through every system with ``simulate_batch`` (one launch of the
-    baseline or the PFCS kernel each), PFCS's tables built by
+    configuration, unreduced, through ``repro_torch.cases.run_table1``:
+    each workload's three trials (seeds 0-2) through every engine system
+    with ``simulate_batch`` (one launch of the baseline or the PFCS kernel
+    each), PFCS's tables built by
     ``discover="kernel"`` (the flat mask and factorization kernels, each
     held against its plain version at every shape it launched at and
     timed by graph replay).  Every baseline trace's counters equal the
@@ -2564,6 +2775,7 @@ def phase_table1(ctx: Context) -> dict:
     ``TABLE1_SEED0``.  Launches are counted from 0 over the whole run;
     each engine call's bound (``engine_bound``) is counted after it."""
     from repro_torch import kernels
+    from repro_torch.cases import TABLE1_CAPS
     from repro_torch.core import (derive_table1_row, simulate_baseline,
                                   simulate_pfcs)
 
@@ -2572,7 +2784,7 @@ def phase_table1(ctx: Context) -> dict:
     report = {}
     try:
         kernels.reset_launch_counts()
-        results = table1_runs(engine_cap)
+        results, table_rows = table1_runs(engine_cap)
         launches = kernels.launch_counts()
     finally:
         engine_cap.close()
@@ -2661,6 +2873,7 @@ def phase_table1(ctx: Context) -> dict:
                       required=["divisibility_mask", "factorize_squarefree"],
                       shape_launches=capture.launches)
     return {"launches": launches, "engine": ctx.engine_path,
+            "rows": table_rows,
             "flat_kernels_exact": [r["name"] for r in rows],
             # (each launch's dynamic shared bytes are in its placement)
             "engine_ptxas": {name: ptxas_lines(kernels.KERNELS[name])
@@ -2679,6 +2892,8 @@ PHASES = [
     ("elastic", phase_elastic),
     ("moe", phase_moe),
     ("obs", phase_obs),
+    ("tenancy", phase_tenancy),
+    ("dedup", phase_dedup),
     ("scale", phase_scale),
     ("scale_full_scan", phase_scale_full_scan),
     ("serving_wide", phase_serving_wide),
@@ -2727,19 +2942,24 @@ def report(ctx: Context) -> None:
 
 def table1_times(tree: str) -> dict:
     """``table1_runs`` twice with the port of ``tree`` (a directory
-    holding a ``src/repro_torch``): each (workload, system)'s engine
-    kernel ms, the least of its two launches (CUDA events around the
-    launch; a process's first launch of a kernel also loads it), its
-    seed-0 hits held to ``TABLE1_SEED0``."""
+    holding a ``src/repro_torch`` with ``cases.run_table1``): each
+    (workload, system)'s engine kernel ms, the least of its two launches
+    (CUDA events around the launch; a process's first launch of a kernel
+    also loads it), its seed-0 hits held to ``TABLE1_SEED0``."""
     src = os.path.realpath(os.path.join(tree, "src"))
     sys.path.insert(0, src)
     import repro_torch
 
     if not os.path.realpath(repro_torch.__file__).startswith(src + os.sep):
         raise RuntimeError(f"imported {repro_torch.__file__}, not {tree}'s")
+    from repro_torch import cases
+
+    if not hasattr(cases, "run_table1"):
+        raise RuntimeError(f"{tree}'s repro_torch.cases has no run_table1, "
+                           f"whose configuration the comparison runs")
     cap = EngineCapture()
     try:
-        runs = [table1_runs(cap) for _ in range(2)]
+        runs = [table1_runs(cap)[0] for _ in range(2)]
     finally:
         cap.close()
     ms = {}

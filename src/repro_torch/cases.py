@@ -18,12 +18,20 @@ the runner writes them:
   against the uninterrupted scalar oracle.
 * :func:`case_moe` — the MoE expert tier over a router schedule, and the
   engine's synthetic-router load generator.
+* :func:`case_tenancy` — one engine serving a hot, cold and scanner
+  tenants under weighted quotas, vec against the scalar oracle per tenant.
+* :func:`case_dedup` — shared system prompts across tenants through the
+  slot machine with copy-on-write dedup, against its scalar oracle and a
+  run without dedup.
 * :func:`case_scale` — the wide registry (below).
+* :func:`run_table1` — ``benchmarks/table1.py::run``: the paper's Table 1
+  over the trace engine (not a runner case: it writes no BENCH file).
 
-Three cases are also split into the pieces ``chip_smoke.py`` drives on
+Five cases are also split into the pieces ``chip_smoke.py`` drives on
 the card (``serving_run``; ``batching_trace``, ``batching_run``,
 ``check_batching`` and ``batching_report``; ``moe_schedule`` and
-``moe_run``).
+``moe_run``; ``tenancy_run`` and ``check_tenancy``; ``dedup_trace``,
+``dedup_run`` and ``check_dedup``).
 
 :func:`case_scale` is the million-element wide-registry case: 1M data
 elements through Algorithm 1's MEM pool, 10,000 chains 100 deep
@@ -66,8 +74,13 @@ __all__ = ["ScaleUniverse", "build_scale_universe", "verify_scale",
            "case_serving", "serving_run", "case_batching", "BATCHING_CONFIGS",
            "batching_trace", "batching_run", "check_batching",
            "batching_report", "case_elastic", "case_moe", "MoESchedule",
-           "moe_schedule", "moe_run", "bench_payload", "CASES", "DEFAULT_OUT",
-           "run_case", "main"]
+           "moe_schedule", "moe_run", "case_tenancy", "tenancy_config",
+           "tenancy_run", "tenancy_protection", "check_tenancy",
+           "TENANCY_TRAIL",
+           "case_dedup", "DedupTrace", "dedup_trace", "dedup_run",
+           "check_dedup", "DEDUP_PAGE_MB", "run_table1", "table1_workloads",
+           "TABLE1_CAPS", "TABLE1_SYSTEMS", "TABLE1_PAPER", "bench_payload",
+           "CASES", "DEFAULT_OUT", "run_case", "main"]
 
 #: the registry's chunk width: 1024 bits, 32 limbs
 SCALE_MAX_BITS = 1024
@@ -738,6 +751,500 @@ def case_moe(smoke: bool = False, real_router: Optional[bool] = None,
 
 
 # --------------------------------------------------------------------------- #
+# multi-tenant QoS: case_tenancy                                              #
+# --------------------------------------------------------------------------- #
+
+def tenancy_config(smoke: bool) -> Dict[str, object]:
+    """``case_tenancy``'s sizes: one hot tenant (weight 4), ``n_cold``
+    cold ones and one scanner (weight 1 each); requests per class, new
+    tokens per class, the scanner's prompt and the shared-prefix length."""
+    if smoke:
+        return dict(n_cold=2, hbm=32, max_batch=16, hot_req=12, cold_req=6,
+                    scan_req=8, hot_new=8, cold_new=16, scan_new=12,
+                    scan_prompt=192, shared_tok=48)
+    return dict(n_cold=6, hbm=128, max_batch=64, hot_req=48, cold_req=8,
+                scan_req=16, hot_new=8, cold_new=48, scan_new=24,
+                scan_prompt=512, shared_tok=96)
+
+
+def tenancy_run(kv: str, smoke: bool = False, shards: int = 2,
+                max_bits: int = 62, device="cuda") -> Dict[str, object]:
+    """One ``case_tenancy`` engine run: ``ServingEngine`` (``model=None``)
+    with ``tenants=`` the weighted QoS configuration, the mixed-tenant
+    requests of seed 0 submitted round-robin by tenant.  Returns the
+    reference's run dict (wall, per-tenant rates, hit rates, TTFTs,
+    evictions, quotas, the parity tuples, the prefetch log, ``_pages``)
+    and, beside it, every touch's tier (``tiers``), the per-tenant
+    prefetch logs and the occupancy.  The wall waits for the card."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.tenancy import TenantQoSConfig
+
+    dev = resolve_device(device)
+    c = tenancy_config(smoke)
+    T = c["n_cold"] + 2
+    hot, scanner = 0, T - 1
+    # the hot tenant earns a weighted share; the scanner gets a cold
+    # tenant's share: QoS is the contract, not the workload's appetite
+    cfg = TenantQoSConfig.weighted(c["hbm"], [4] + [1] * c["n_cold"] + [1],
+                                   prefetch_budget=4)
+    eng = ServingEngine(None, None, max_batch=c["max_batch"], page_size=16,
+                        hbm_pages=c["hbm"], kv=kv, prefetch_budget=4,
+                        reread_window=2, tenants=cfg, shards=shards,
+                        max_bits=max_bits, device=dev)
+    tiers: List[str] = []
+
+    def record(items, touch=eng.pages.touch_batch):
+        out = touch(items)
+        tiers.extend(out)
+        return out
+
+    eng.pages.touch_batch = record
+    rng = np.random.default_rng(0)
+    groups = [list(rng.integers(0, 30_000, size=c["shared_tok"]))
+              for _ in range(4)]
+    reqs = []
+    for _ in range(c["hot_req"]):           # zipf-hot shared prefixes
+        g = groups[min(int(rng.zipf(1.5)) - 1, 3)]
+        tail = list(rng.integers(0, 30_000, size=int(rng.integers(16, 50))))
+        reqs.append((hot, g + tail, c["hot_new"]))
+    for t in range(1, 1 + c["n_cold"]):     # sparse unique traffic
+        for _ in range(c["cold_req"]):
+            reqs.append((t, list(rng.integers(
+                0, 30_000, size=int(rng.integers(24, 80)))), c["cold_new"]))
+    for i in range(c["scan_req"]):          # adversarial long chains
+        base = 100_000 + i * c["scan_prompt"]
+        reqs.append((scanner, list(range(base, base + c["scan_prompt"])),
+                     c["scan_new"]))
+    # round-robin interleave by tenant so every class is always live
+    by_t = {t: [r for r in reqs if r[0] == t] for t in range(T)}
+    t_of = {}
+    while any(by_t.values()):
+        for t in range(T):
+            if by_t[t]:
+                tt, prompt, new = by_t[t].pop(0)
+                t_of[eng.submit(prompt, max_new_tokens=new, tenant=tt)] = tt
+    _sync(dev)
+    t0 = time.perf_counter()
+    done = eng.run_until_idle()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    toks = [0] * T
+    ttfts: List[List[float]] = [[] for _ in range(T)]
+    # first submit .. last completion: a starved tenant finishes late, so
+    # its completion rate drops (tokens / wall would be blind to it)
+    span_lo, span_hi = [float("inf")] * T, [0.0] * T
+    for r in done:
+        t = t_of[r.req_id]
+        toks[t] += len(r.generated)
+        span_lo[t] = min(span_lo[t], r.submit_t)
+        span_hi[t] = max(span_hi[t], r.done_t or r.submit_t)
+        if r.first_token_t is not None:
+            ttfts[t].append(r.first_token_t - r.submit_t)
+    q = eng.pages.qos
+    return dict(
+        wall_s=wall, completed=len(done),
+        tenant_tok_per_s=[tk / max(hi - lo, 1e-9)
+                          for tk, lo, hi in zip(toks, span_lo, span_hi)],
+        tenant_hit_rate=[s.hbm_hit_rate for s in q.tenant_stats],
+        tenant_pf_precision=[s.prefetch_hit_rate for s in q.tenant_stats],
+        tenant_mean_ttft_ms=[float(np.mean(tt)) * 1e3 if tt else 0.0
+                             for tt in ttfts],
+        tenant_evictions=[s.evictions for s in q.tenant_stats],
+        cross_tenant_prefetches=eng.pages.cross_tenant_prefetches(),
+        occupancy_ok=bool((q.occupancy <= q.quota).all()),
+        quota=[int(x) for x in q.quota],
+        parity=eng.pages.stats.parity_tuple(),
+        tenant_parity=[s.parity_tuple() for s in q.tenant_stats],
+        prefetch_log=tuple(eng.pages.prefetch_log),
+        registry_scans=eng.pages.stats.registry_scans,
+        tiers=tiers, tenant_logs=[list(x) for x in q.tenant_logs],
+        occupancy=[int(x) for x in q.occupancy], _pages=eng.pages)
+
+
+#: what :func:`tenancy_run` returns beside the reference's run dict
+TENANCY_TRAIL = ("parity", "tenant_parity", "prefetch_log", "tiers",
+                 "tenant_logs", "occupancy")
+
+
+def tenancy_protection(tenanted: bool, device="cuda") -> float:
+    """The hot working set (4 pages) against a scanner sweeping 24 pages
+    every step: the hot tenant's hit rate with per-tenant quotas (4 + 4
+    of 8 pages) or in one shared, untenanted cache of 8 pages."""
+    from repro_torch.serving.kv_cache_vec import VectorizedPagedKVCache
+    from repro_torch.tenancy import (TenantQoSConfig,
+                                     TenantedVectorizedPagedKVCache)
+
+    if tenanted:
+        kv = TenantedVectorizedPagedKVCache(
+            hbm_pages=8, page_size=4, prefetch_budget=0,
+            qos=TenantQoSConfig(2, (4, 4), (0, 0), (1, 1)), device=device)
+        kv.register_request(0, list(range(16)), tenant=0)
+        kv.register_request(1, list(range(100, 196)), tenant=1)
+    else:
+        kv = VectorizedPagedKVCache(hbm_pages=8, page_size=4,
+                                    prefetch_budget=0, device=device)
+        kv.register_request(0, list(range(16)))
+        kv.register_request(1, list(range(100, 196)))
+    hits = total = 0
+    for i in range(30):
+        hits += kv.touch(0, i % 4) == "hbm"
+        total += 1
+        kv.touch_batch([(1, j) for j in range(len(kv.chains[1]))])
+    return hits / total
+
+
+def case_tenancy(smoke: bool = False, device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_tenancy`` on the port: one engine serves
+    a hot tenant (zipf-popular shared prefixes), ``n_cold`` sparse cold
+    tenants and an adversarial scanner at equal token demand, through
+    ``pfcs_vec`` and ``pfcs_scalar``, with the reference's asserts:
+    vec and scalar bit-exact globally and per tenant (counters, prefetch
+    logs), no registry scan on the vectorized path, zero cross-tenant
+    prefetches, occupancy within quota, and ``check_isolation`` over the
+    final registry (pairwise gcds at the smoke size).  Returns the
+    reference's dict (each run without its parity tuples and logs, the
+    fairness ratio, the isolation counts and the quota-vs-shared
+    protection A/B); :func:`bench_payload` gives the keys of
+    ``BENCH_case_tenancy.json``."""
+    dev = resolve_device(device)
+    res = {"pfcs_vec": tenancy_run("vec", smoke, device=dev),
+           "pfcs_scalar": tenancy_run("scalar", smoke, device=dev)}
+    return check_tenancy(res, smoke, device=dev)
+
+
+def check_tenancy(res: Dict[str, dict], smoke: bool,
+                  device="cuda") -> Dict[str, object]:
+    """``case_tenancy``'s asserts over its two runs (``pfcs_vec``,
+    ``pfcs_scalar``, as :func:`tenancy_run` returns them), then its
+    protection A/B on ``device``: the case's returned dict."""
+    v, o = res["pfcs_vec"], res["pfcs_scalar"]
+    for key, what in (("parity", "tenanted vectorized cache diverged from "
+                                 "the scalar oracle"),
+                      ("tenant_parity", "per-tenant stats diverged between "
+                                        "vec and scalar"),
+                      ("prefetch_log", "tenanted caches issued different "
+                                       "prefetches")):
+        if v[key] != o[key]:
+            raise AssertionError(what)
+    if v["registry_scans"]:
+        raise AssertionError("tenanted vectorized touch path performed a "
+                             "registry scan")
+    for name, r in res.items():
+        if r["cross_tenant_prefetches"]:
+            raise AssertionError(f"{name}: cross-tenant prefetch issued")
+        if not r["occupancy_ok"]:
+            raise AssertionError(f"{name}: quota exceeded")
+    pages = v["_pages"]
+    rep = pages.namespace.check_isolation(pages.registry, pairwise_gcd=smoke)
+    if not rep.ok:
+        raise AssertionError(f"isolation violated: {rep.violations}")
+    rates = v["tenant_tok_per_s"]
+    fairness = max(rates) / max(min(rates), 1e-9)
+    hot_quota = tenancy_protection(True, device=device)
+    hot_shared = tenancy_protection(False, device=device)
+    n_cold = tenancy_config(smoke)["n_cold"]
+    names = (["hot"] + [f"cold{i}" for i in range(1, 1 + n_cold)]
+             + ["scanner"])
+    out = {k: {kk: vv for kk, vv in r.items()
+               if kk not in TENANCY_TRAIL + ("_pages",)}
+           for k, r in res.items()}
+    out.update(fairness_ratio=fairness, tenant_names=names,
+               isolation_composites=rep.n_composites,
+               coprime_pairs_checked=rep.coprime_pairs_checked,
+               protection=dict(quota_hit=hot_quota, shared_hit=hot_shared))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# cross-tenant COW dedup: case_dedup                                          #
+# --------------------------------------------------------------------------- #
+
+#: nominal KV megabytes per page: 4 tokens x (K+V) x 4096 hidden x fp16 (a
+#: fixed scale factor, not a measurement)
+DEDUP_PAGE_MB = 4 * 2 * 4096 * 2 / 2**20
+
+
+@dataclass
+class DedupTrace:
+    """``case_dedup``'s arrivals ``(tick, prompt, max_new, tenant)``, its
+    tenant count and HBM pages."""
+
+    n_tenants: int
+    hbm: int
+    arrivals: List[Tuple[int, List[int], int, int]]
+
+
+def dedup_trace(smoke: bool) -> DedupTrace:
+    """Every user of every tenant resends one of two system prompts
+    verbatim plus a short unique suffix (seed 0): smoke 3 tenants x 4
+    requests, 30 HBM pages, 32-token prompts; full 6 x 10, 84 pages, 64
+    tokens; request ``i`` (tenant ``i % tenants``) arrives at tick
+    ``i // tenants``."""
+    if smoke:
+        T, req_per_tenant, hbm, sys_tok, max_new = 3, 4, 30, 32, 6
+    else:
+        T, req_per_tenant, hbm, sys_tok, max_new = 6, 10, 84, 64, 8
+    n_prompts = 2
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, 30_000, size=sys_tok))
+               for _ in range(n_prompts)]
+    arrivals = []
+    for i in range(T * req_per_tenant):
+        sysp = prompts[(i // T) % n_prompts]
+        tail = list(rng.integers(0, 30_000, size=int(rng.integers(4, 13))))
+        arrivals.append((i // T, sysp + tail, max_new, i % T))
+    return DedupTrace(T, hbm, arrivals)
+
+
+def dedup_run(tr: DedupTrace, engine: str, kv: str, dedup: bool,
+              shards: int = 2, max_bits: int = 62,
+              device="cuda") -> Dict[str, object]:
+    """One ``case_dedup`` slot-machine run (``engine`` ``"SlotMachine"``
+    or ``"SlotOracle"``; 8 slots, 4-token pages, prefetch budget 2,
+    8-token prefill chunks, ``tenants=`` the trace's tenant count): the
+    reference's run dict (latency report, charged HBM pages per user,
+    unique pages, ``DEDUP_COUNTERS``, the tier log, ``_pages``; with
+    dedup its twin state, probes and shared occupancy) and every
+    request's tick timings (``timings``).  The wall waits for the card."""
+    from repro_torch.serving import slots
+    from repro_torch.serving.dedup import DEDUP_COUNTERS
+
+    dev = resolve_device(device)
+    eng = getattr(slots, engine)(
+        max_batch=8, page_size=4, hbm_pages=tr.hbm, prefetch_budget=2,
+        reread_window=2, prefill_tokens=8, kv=kv, tenants=tr.n_tenants,
+        dedup=dedup, shards=shards, max_bits=max_bits, device=dev)
+    for arrival, prompt, new, t in tr.arrivals:
+        eng.submit(list(prompt), max_new_tokens=new, tenant=t,
+                   arrival=arrival)
+    _sync(dev)
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    rep = eng.latency_report()
+    pages = eng.pages
+    per_user = [float(x) for x in (pages.charged_shares() if dedup
+                                   else pages.qos.occupancy)]
+    out = dict(
+        wall_s=wall, completed=rep["completed"], ticks=rep["ticks"],
+        ttft_ticks=rep["ttft_ticks"], tpot_ticks=rep["tpot_ticks"],
+        hbm_pages_per_user=per_user,
+        hbm_mb_per_user=[x * DEDUP_PAGE_MB for x in per_user],
+        mean_pages_per_user=float(np.mean(per_user)),
+        unique_pages=int(pages._next_page),
+        counters={f: getattr(pages.stats, f) for f in DEDUP_COUNTERS},
+        cross_tenant_prefetches=pages.cross_tenant_prefetches(),
+        tier_log=tuple(eng.tier_log),
+        timings=[(r.first_tick, r.done_tick, r.preemptions)
+                 for r in eng.requests],
+        _pages=pages)
+    if dedup:
+        out.update(dedup_state=pages.dedup_state(),
+                   dedup_probes=int(pages.dedup_probes),
+                   shared_occupancy=int(pages.qos.shared_occupancy))
+    return out
+
+
+def case_dedup(smoke: bool = False, device="cuda") -> Dict[str, object]:
+    """``benchmarks/cases.py::case_dedup`` on the port: the shared-system-
+    prompt trace through ``dedup_vec`` (``SlotMachine``, ``kv="vec"``),
+    ``dedup_scalar`` (``SlotOracle``, the scalar dedup oracle) and
+    ``nodedup_vec``, with the reference's asserts: the dedup machine
+    bit-exact against the oracle (``DEDUP_COUNTERS``, tier log, refcount
+    state), hits, promotions and copies-on-write all above 0, zero
+    cross-tenant prefetches, every request completed, ``check_isolation``
+    green with shared composites, and dedup strictly lowering the mean
+    charged HBM pages per user and the median TTFT.  Every admission with
+    a live co-referencing request runs the gcd probe (``shared_prefix``:
+    the batched gcd and the squarefree factorization on ``device``).
+    Returns the reference's dict; :func:`bench_payload` gives the keys
+    of ``BENCH_case_dedup.json``."""
+    dev = resolve_device(device)
+    tr = dedup_trace(smoke)
+    res = {"dedup_vec": dedup_run(tr, "SlotMachine", "vec", True, device=dev),
+           "dedup_scalar": dedup_run(tr, "SlotOracle", "scalar", True,
+                                     device=dev),
+           "nodedup_vec": dedup_run(tr, "SlotMachine", "vec", False,
+                                    device=dev)}
+    return check_dedup(res, tr, smoke)
+
+
+def check_dedup(res: Dict[str, dict], tr: DedupTrace,
+                smoke: bool) -> Dict[str, object]:
+    """``case_dedup``'s asserts over its three runs (``dedup_vec``,
+    ``dedup_scalar``, ``nodedup_vec``, as :func:`dedup_run` returns them;
+    their pages, tier logs and timings are dropped from ``res``): the
+    case's returned dict."""
+    a, b, nd = res["dedup_vec"], res["dedup_scalar"], res["nodedup_vec"]
+    for key, what in (("counters", "dedup slot machine diverged from the "
+                                   "scalar dedup oracle"),
+                      ("tier_log", "dedup tier logs diverged"),
+                      ("dedup_state", "dedup refcount state diverged")):
+        if a[key] != b[key]:
+            raise AssertionError(what)
+    for key in ("dedup_hits", "dedup_promotions", "cow_copies"):
+        if a["counters"][key] <= 0:
+            raise AssertionError(f"dedup run had no {key}")
+    for name, r in res.items():
+        if r["cross_tenant_prefetches"]:
+            raise AssertionError(f"{name}: cross-tenant prefetch issued")
+        if r["completed"] != len(tr.arrivals):
+            raise AssertionError(f"{name}: {r['completed']} of "
+                                 f"{len(tr.arrivals)} requests completed")
+    # the headline claims: dedup strictly lowers both the charged HBM
+    # footprint per user and the median TTFT
+    if a["mean_pages_per_user"] >= nd["mean_pages_per_user"]:
+        raise AssertionError("dedup failed to reduce charged HBM pages per "
+                             "user")
+    if a["ttft_ticks"][50] >= nd["ttft_ticks"][50]:
+        raise AssertionError("dedup failed to reduce median TTFT")
+    pages = a["_pages"]
+    rep = pages.namespace.check_isolation(pages.registry, pairwise_gcd=smoke)
+    if not rep.ok:
+        raise AssertionError(f"isolation violated: {rep.violations}")
+    if rep.n_shared <= 0:
+        raise AssertionError("dedup run must produce shared composites")
+    for r in res.values():
+        for key in ("_pages", "tier_log", "timings"):
+            r.pop(key)
+    hbm_saving = 1 - a["mean_pages_per_user"] / nd["mean_pages_per_user"]
+    ttft_saving = 1 - a["ttft_ticks"][50] / max(nd["ttft_ticks"][50], 1e-9)
+    return dict(res, hbm_saving=hbm_saving, ttft_saving=ttft_saving,
+                n_shared_composites=rep.n_shared, page_mb=DEDUP_PAGE_MB)
+
+
+# --------------------------------------------------------------------------- #
+# Table 1: run_table1                                                         #
+# --------------------------------------------------------------------------- #
+
+#: ``benchmarks/table1.py``'s level capacities and systems (lines 27-28)
+TABLE1_CAPS = (("L1", 64), ("L2", 256), ("L3", 2048))
+TABLE1_SYSTEMS = ("lru", "arc", "lirs", "semantic", "pfcs")
+#: the paper's Table 1 (``benchmarks/table1.py``'s ``PAPER``)
+TABLE1_PAPER = {
+    "lru": dict(hit=87.3, lat=0.0, pow=0.0, acc=None),
+    "arc": dict(hit=91.2, lat=12.1, pow=6.8, acc=None),
+    "lirs": dict(hit=92.4, lat=15.7, pow=8.2, acc=None),
+    "semantic": dict(hit=94.1, lat=22.3, pow=11.5, acc=86.4),
+    "pfcs": dict(hit=98.9, lat=41.2, pow=38.1, acc=100.0),
+}
+
+
+def table1_workloads(scale: float = 1.0) -> Dict[str, Tuple[str, dict]]:
+    """``benchmarks/table1.py``'s workloads (lines 40-55): generator name
+    in ``repro_torch.core.traces`` and its arguments but the seed;
+    ``scale`` stretches trace length only (the key space stays fixed)."""
+    return {
+        "db_join": ("db_join_trace", dict(
+            n_orders=4000, n_customers=600, n_items=1200,
+            n_queries=int(20000 * scale))),
+        "ml_epoch": ("ml_epoch_trace", dict(
+            n_samples=2500, n_feature_rows=600,
+            n_epochs=max(1, int(round(3 * scale))))),
+        "hft": ("hft_trace", dict(
+            n_instruments=2500, n_corr_groups=350,
+            n_events=int(20000 * scale))),
+    }
+
+
+def _agg(values) -> Tuple[float, float]:
+    a = np.asarray(list(values), dtype=np.float64)
+    return float(a.mean()), float(a.std(ddof=1)) if len(a) > 1 else 0.0
+
+
+def run_table1(n_trials: int = 5, seed0: int = 0, device="cuda",
+               trace_scale: float = 1.0,
+               systems: Tuple[str, ...] = TABLE1_SYSTEMS,
+               discover: str = "host") -> Dict[str, object]:
+    """``benchmarks/table1.py::run`` on the port: each workload's
+    ``n_trials`` traces (seeds ``seed0``...) through every system, the
+    engine's systems with one ``simulate_batch`` launch per workload (on a
+    card, one engine kernel launch), PFCS's tables built by
+    ``pfcs_tables`` with ``discover`` (``"host"``, as ``run`` builds them;
+    ``"kernel"`` runs the flat mask and factorization kernels on
+    ``device`` and gives the same counters but no Pollard-rho count in
+    ``factor_ops``, as in the reference), the semantic baseline by its
+    scalar simulator, then ``derive_table1_row`` of each trial against
+    LRU (``systems`` must hold ``"lru"``).  Returns the
+    reference's table: per system ``hit``, ``lat``, ``pow`` as (mean,
+    std), ``acc``, ``speedup`` and ``paper`` (None for a system the paper
+    does not list), ``_wall_s`` (host seconds per workload and system,
+    PFCS's table build included) and ``_trace_scale``; and ``_runs``, per
+    workload the traces, PFCS's tables, their build seconds and each
+    system's ``AccessStats`` and engine wall (``wall_s``, without the
+    table build), in run order."""
+    from repro_torch.core import (derive_table1_row, simulate_semantic,
+                                  traces as trace_gens)
+    from repro_torch.core.engine import (VECTORIZED_SYSTEMS, pfcs_tables,
+                                         simulate_batch)
+    from repro_torch.core.engine.batch import key_space
+
+    if "lru" not in systems:
+        raise ValueError("Table 1's rows are relative to LRU: systems must "
+                         "hold 'lru'")
+    dev = resolve_device(device)
+    rows = {s: {"hit": [], "lat": [], "pow": [], "acc": [], "speed": []}
+            for s in systems}
+    wall: Dict[str, float] = {}
+    runs: Dict[str, dict] = {}
+    for wname, (gen, kw) in table1_workloads(trace_scale).items():
+        traces = [getattr(trace_gens, gen)(seed=seed0 + t, **kw)
+                  for t in range(n_trials)]
+        tables, table_s = None, 0.0
+        per_system, walls = {}, {}
+        for s in systems:
+            if s == "pfcs":
+                n_keys = key_space(traces)
+                t0 = time.perf_counter()
+                tables = [pfcs_tables(tr, TABLE1_CAPS, discover=discover,
+                                      n_keys=n_keys, device=dev)
+                          for tr in traces]
+                _sync(dev)
+                table_s = time.perf_counter() - t0
+            _sync(dev)
+            t0 = time.perf_counter()
+            if s in VECTORIZED_SYSTEMS:
+                stats = simulate_batch(traces, s, TABLE1_CAPS, device=dev,
+                                       tables=tables if s == "pfcs"
+                                       else None)
+            elif s == "semantic":
+                stats = [simulate_semantic(tr, TABLE1_CAPS, seed=seed0 + t)
+                         for t, tr in enumerate(traces)]
+            else:
+                raise ValueError(f"Table 1 has no system {s!r}")
+            _sync(dev)
+            walls[s] = time.perf_counter() - t0
+            per_system[s] = stats
+            wall[f"{wname}.{s}"] = walls[s] + (table_s if s == "pfcs"
+                                               else 0.0)
+        runs[wname] = dict(traces=traces, tables=tables, table_s=table_s,
+                           stats=per_system, wall_s=walls)
+        for t in range(n_trials):
+            base = per_system["lru"][t]
+            for s in systems:
+                row = derive_table1_row(per_system[s][t], base)
+                rows[s]["hit"].append(row["hit_rate_pct"])
+                rows[s]["lat"].append(row["latency_reduction_pct"])
+                rows[s]["pow"].append(row["power_reduction_pct"])
+                rows[s]["speed"].append(row["speedup"])
+                if row["relationship_accuracy_pct"] is not None:
+                    rows[s]["acc"].append(row["relationship_accuracy_pct"])
+    table: Dict[str, object] = {}
+    for s in systems:
+        r = rows[s]
+        table[s] = dict(hit=_agg(r["hit"]), lat=_agg(r["lat"]),
+                        pow=_agg(r["pow"]),
+                        acc=_agg(r["acc"])[0] if r["acc"] else None,
+                        speedup=_agg(r["speed"])[0],
+                        paper=TABLE1_PAPER.get(s))
+    table["_wall_s"] = wall
+    table["_trace_scale"] = trace_scale
+    table["_runs"] = runs
+    return table
+
+
+# --------------------------------------------------------------------------- #
 # BENCH_*.json payloads and the runner                                        #
 # --------------------------------------------------------------------------- #
 
@@ -774,13 +1281,38 @@ def bench_payload(name: str, out: Dict[str, object]) -> Dict[str, object]:
                       "prefetch_precision", "registry_scans")}
         payload["vec_vs_scalar_speedup"] = out["vec_vs_scalar_speedup"]
         return payload
+    if name == "case_tenancy":
+        v = out["pfcs_vec"]
+        payload = {k: v[k] for k in ("tenant_hit_rate", "tenant_evictions",
+                                     "cross_tenant_prefetches", "completed",
+                                     "registry_scans", "quota")}
+        payload.update(isolation_composites=out["isolation_composites"],
+                       protection=dict(out["protection"]))
+        return payload
+    if name == "case_dedup":
+        a, nd = out["dedup_vec"], out["nodedup_vec"]
+        return {
+            "counters": dict(a["counters"]),
+            "dedup_state_refs": {str(k): v for k, v in
+                                 a["dedup_state"]["refs"].items()},
+            "dedup_probes": a["dedup_probes"],
+            "shared_occupancy": a["shared_occupancy"],
+            "hbm_pages_per_user_dedup": a["hbm_pages_per_user"],
+            "hbm_pages_per_user_nodedup": nd["hbm_pages_per_user"],
+            "unique_pages": {"dedup": a["unique_pages"],
+                             "nodedup": nd["unique_pages"]},
+            "ttft_ticks": {k: {str(q): x for q, x in r["ttft_ticks"].items()}
+                           for k, r in (("dedup", a), ("nodedup", nd))},
+            "completed": a["completed"],
+            "n_shared_composites": out["n_shared_composites"]}
     if name in ("case_elastic", "case_scale"):
         return dict(out)
     raise ValueError(f"no BENCH payload for {name!r}")
 
 
 #: the runner's cases, in run order
-CASES = ("serving", "batching", "elastic", "moe", "scale")
+CASES = ("serving", "batching", "elastic", "moe", "tenancy", "dedup",
+         "scale")
 #: the runner's default output directory (gitignored)
 DEFAULT_OUT = "bench_torch"
 
@@ -797,6 +1329,10 @@ def run_case(case: str, full: bool, device="cuda") -> Dict[str, object]:
         return case_elastic(smoke=smoke, device=device)
     if case == "moe":
         return case_moe(smoke=smoke, real_router=False, device=device)
+    if case == "tenancy":
+        return case_tenancy(smoke=smoke, device=device)
+    if case == "dedup":
+        return case_dedup(smoke=smoke, device=device)
     if case == "scale":
         return case_scale(n_verify_chains=24 if smoke else 64,
                           device=device)

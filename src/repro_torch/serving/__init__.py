@@ -13,8 +13,14 @@
   * :class:`ExpertCache` / :class:`VectorizedExpertCache` — the MoE
     expert-weight tier with co-activation prefetch (the scalar oracle and
     its array twin; ``moe="scalar"`` / ``"vec"``)
+  * :class:`DedupOracle` / :class:`DedupVectorizedPagedKVCache` (and
+    the sharded and elastic dedup caches) — cross-tenant copy-on-write
+    shared-prefix dedup over the tenant namespaces of
+    :mod:`repro_torch.tenancy` (``dedup=True``); :data:`DEDUP_COUNTERS`
+    is their parity contract
   * :class:`ServingEngine`          — continuous-batching engine over any
-    of the caches (``model=None`` load-generator mode)
+    of the caches (``model=None`` load-generator mode; ``tenants=``,
+    ``dedup=``)
   * :class:`SlotMachine` / :class:`SlotOracle` — the continuous-batching
     slot machine and its per-slot Python-loop twin
 """
@@ -38,4 +44,20 @@ __all__ = [
     "ShardedPagedKVCache", "VectorizedPagedKVCache",
     "ElasticShardedPagedKVCache", "ElasticController", "RecoveryReport",
     "SlotMachine", "SlotOracle", "SlotRequest", "poisson_arrival_ticks",
+    "DEDUP_COUNTERS", "DedupOracle", "DedupVectorizedPagedKVCache",
+    "DedupShardedPagedKVCache", "DedupElasticShardedPagedKVCache",
 ]
+
+#: loaded on first use: ``dedup`` builds on ``repro_torch.tenancy``, which
+#: imports this package's caches, so an eager import here would make
+#: ``import repro_torch.tenancy`` circular
+_DEDUP = ("DEDUP_COUNTERS", "DedupOracle", "DedupVectorizedPagedKVCache",
+          "DedupShardedPagedKVCache", "DedupElasticShardedPagedKVCache")
+
+
+def __getattr__(name):
+    if name in _DEDUP:
+        from . import dedup
+
+        return getattr(dedup, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

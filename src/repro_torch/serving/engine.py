@@ -34,10 +34,17 @@ ExpertCache`).  With ``model=None`` the router is a deterministic
 synthetic schedule (:func:`synthetic_router_groups`), the load-generator
 mode ``repro_torch.cases.case_moe`` drives.
 
+``tenants=`` (an int or a :class:`~repro_torch.tenancy.TenantQoSConfig`)
+selects the tenant-namespaced variant of every backend (per-tenant HBM
+quotas, prefetch budgets and stats; requests carry a tenant id), and
+``dedup=True`` on top of it the copy-on-write shared-prefix dedup variant
+(:mod:`repro_torch.serving.dedup`), whose admissions are probed through
+the batched gcd on ``device``.
+
 The engine runs with ``model=None``: a pure page-management load
 generator with deterministic stub tokens, the mode the serving benchmark
-drives.  Model decode, tenants and dedup are still to port (ROADMAP.md
-A.14, A.11, A.12) and raise ``NotImplementedError``.
+drives.  Model decode is still to port (ROADMAP.md A.14) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,16 +73,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def check_not_ported(*, model=None, tenants=None,
-                     dedup: bool = False) -> None:
+def check_not_ported(*, model=None) -> None:
     """Raise ``NotImplementedError`` for a feature of ``repro``'s engines
     that the port does not have yet."""
     if model is not None:
         raise _not_ported("serving a model (model is not None)", "A.14")
-    if dedup:
-        raise _not_ported("cross-tenant dedup (dedup=)", "A.12")
-    if tenants is not None:
-        raise _not_ported("tenant namespaces (tenants=)", "A.11")
 
 
 def make_kv_backend(kv: str, *, hbm_pages: int, page_size: int,
@@ -87,29 +89,45 @@ def make_kv_backend(kv: str, *, hbm_pages: int, page_size: int,
     continuous-batching :class:`~repro_torch.serving.slots.SlotMachine`).
 
     ``kv`` is one of ``"vec" | "scalar" | "sharded" | "elastic"``;
-    ``device`` is where the discovery kernels run."""
-    check_not_ported(tenants=tenants, dedup=dedup)
-    if kv == "vec":
-        return VectorizedPagedKVCache(
-            hbm_pages=hbm_pages, page_size=page_size,
-            prefetch_budget=prefetch_budget, max_bits=max_bits,
-            device=device)
-    if kv == "scalar":
-        return PagedKVCache(hbm_pages=hbm_pages, page_size=page_size,
-                            prefetch_budget=prefetch_budget,
-                            max_bits=max_bits, device=device)
-    if kv == "sharded":
-        return ShardedPagedKVCache(
-            hbm_pages=hbm_pages, page_size=page_size,
-            prefetch_budget=prefetch_budget, n_shards=shards, mesh=mesh,
-            max_bits=max_bits, device=device)
-    if kv == "elastic":
-        return ElasticShardedPagedKVCache(
-            hbm_pages=hbm_pages, page_size=page_size,
-            prefetch_budget=prefetch_budget, n_shards=shards, mesh=mesh,
-            max_bits=max_bits, device=device)
-    raise ValueError(f"kv must be 'vec', 'scalar', 'sharded' or "
-                     f"'elastic', got {kv!r}")
+    ``tenants`` (an int or a :class:`~repro_torch.tenancy.TenantQoSConfig`)
+    selects the tenant-namespaced variant of the same backend, and
+    ``dedup=True`` (tenants mode only) the copy-on-write shared-prefix
+    dedup variant on top of it.  ``max_bits > 63`` runs the registry in
+    multi-limb wide mode; ``device`` is where the discovery kernels run."""
+    if dedup:
+        if tenants is None:
+            raise ValueError("dedup=True needs tenants= mode (the shared "
+                             "namespace is a tenant-namespace extension)")
+        from .dedup import (DedupElasticShardedPagedKVCache, DedupOracle,
+                            DedupShardedPagedKVCache,
+                            DedupVectorizedPagedKVCache)
+        classes = {"vec": DedupVectorizedPagedKVCache,
+                   "scalar": DedupOracle,
+                   "sharded": DedupShardedPagedKVCache,
+                   "elastic": DedupElasticShardedPagedKVCache}
+    elif tenants is not None:
+        from repro_torch.tenancy.qos import (
+            TenantedElasticShardedPagedKVCache, TenantedPagedKVCache,
+            TenantedShardedPagedKVCache, TenantedVectorizedPagedKVCache)
+        classes = {"vec": TenantedVectorizedPagedKVCache,
+                   "scalar": TenantedPagedKVCache,
+                   "sharded": TenantedShardedPagedKVCache,
+                   "elastic": TenantedElasticShardedPagedKVCache}
+    else:
+        classes = {"vec": VectorizedPagedKVCache, "scalar": PagedKVCache,
+                   "sharded": ShardedPagedKVCache,
+                   "elastic": ElasticShardedPagedKVCache}
+    if kv not in classes:
+        raise ValueError(f"kv must be 'vec', 'scalar', 'sharded' or "
+                         f"'elastic', got {kv!r}")
+    kw = dict(hbm_pages=hbm_pages, page_size=page_size,
+              prefetch_budget=prefetch_budget, max_bits=max_bits,
+              device=device)
+    if kv in ("sharded", "elastic"):
+        kw.update(n_shards=shards, mesh=mesh)
+    if tenants is not None:
+        kw["qos"] = tenants
+    return classes[kv](**kw)
 
 
 def make_expert_backend(moe: Optional[str], *, moe_experts: int,
@@ -118,11 +136,22 @@ def make_expert_backend(moe: Optional[str], *, moe_experts: int,
                         ) -> Optional[ExpertCache]:
     """Construct an MoE expert-cache backend by name (``None`` disables
     the tier).  Shared by every engine front-end; ``device`` is where
-    the vectorized cache's kernel discovery runs.  The tenant-partitioned
-    variants are still to port (ROADMAP.md A.11)."""
+    the vectorized cache's kernel discovery runs.  With ``tenants`` the
+    tenant-partitioned variant splits its own slot budget evenly."""
     if moe is None:
         return None
-    check_not_ported(tenants=tenants)
+    if tenants is not None and moe in ("vec", "scalar"):
+        from repro_torch.tenancy.qos import (TenantedExpertCache,
+                                             TenantedVectorizedExpertCache)
+        cls = (TenantedVectorizedExpertCache if moe == "vec"
+               else TenantedExpertCache)
+        # a TenantQoSConfig sizes the KV cache's HBM pages; the
+        # expert tier keeps the tenant count and splits its own
+        # slot budget evenly
+        moe_qos = tenants if isinstance(tenants, int) else tenants.n_tenants
+        return cls(moe_experts, hbm_slots=moe_slots,
+                   prefetch_budget=moe_prefetch_budget, qos=moe_qos,
+                   device=device)
     if moe == "vec":
         return VectorizedExpertCache(moe_experts, hbm_slots=moe_slots,
                                      prefetch_budget=moe_prefetch_budget,
@@ -154,7 +183,7 @@ class Request:
     req_id: int
     prompt: List[int]
     max_new_tokens: int = 32
-    tenant: int = 0
+    tenant: int = 0                # namespace id (tenants= mode; else 0)
     generated: List[int] = field(default_factory=list)
     state: str = "queued"          # queued | running | done
     submit_t: float = 0.0
@@ -173,21 +202,28 @@ class ServingEngine:
                  moe_prefetch_budget: int = 4, moe_groups: int = 16,
                  moe_seed: int = 0, tenants=None, max_bits: int = 62,
                  dedup: bool = False, obs=None, device="cuda"):
-        check_not_ported(model=model, tenants=tenants, dedup=dedup)
+        check_not_ported(model=model)
         self.model = model
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
+        # multi-tenant QoS mode: tenants= an int (even HBM split) or a
+        # TenantQoSConfig; requests carry a tenant id and the cache
+        # enforces per-tenant quotas with per-tenant PageStats / logs
+        self.tenants = tenants
+        # dedup=True (tenants mode): cross-tenant COW shared-prefix dedup
+        self.dedup = bool(dedup)
         self.pages: PagedKVCache = make_kv_backend(
             kv, hbm_pages=hbm_pages, page_size=page_size,
             prefetch_budget=prefetch_budget, shards=shards, mesh=mesh,
-            max_bits=max_bits, device=device)
+            tenants=tenants, max_bits=max_bits, dedup=dedup, device=device)
         self.device = self.pages.device
         # MoE expert-weight tier; the router feed is a deterministic
         # synthetic schedule (load-generator mode)
         self.experts: Optional[ExpertCache] = make_expert_backend(
             moe, moe_experts=moe_experts, moe_slots=moe_slots,
-            moe_prefetch_budget=moe_prefetch_budget, device=device)
+            moe_prefetch_budget=moe_prefetch_budget, tenants=tenants,
+            device=device)
         # synthetic router: drawn deterministically per (request,
         # position) — identical across cache backends AND engines
         self._moe_groups = (synthetic_router_groups(
@@ -240,11 +276,19 @@ class ServingEngine:
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                tenant: int = 0) -> int:
-        if tenant:
-            raise _not_ported("tenant ids", "A.11")
+        if tenant and self.tenants is None:
+            raise ValueError("tenant ids need tenants= mode (pass "
+                             "tenants=N or a TenantQoSConfig)")
+        if self.tenants is not None:
+            # validate HERE: failing later inside _admit would leave a
+            # permanently-running slot holding an unregistered request
+            n = self.pages.qos_config.n_tenants
+            if not 0 <= int(tenant) < n:
+                raise ValueError(f"tenant {tenant} out of range [0, {n})")
         rid = self._next_id
         self._next_id += 1
         self.queue.append(Request(rid, list(prompt), max_new_tokens,
+                                  tenant=int(tenant),
                                   submit_t=time.monotonic()))
         return rid
 
@@ -256,7 +300,11 @@ class ServingEngine:
             req = self.queue.pop(0)
             req.state = "running"
             self.slots[i] = req
-            self.pages.register_request(req.req_id, req.prompt)
+            if self.tenants is not None:
+                self.pages.register_request(req.req_id, req.prompt,
+                                            tenant=req.tenant)
+            else:
+                self.pages.register_request(req.req_id, req.prompt)
 
     def _stub_token(self, req: Request) -> int:
         """Deterministic pseudo-decode for model=None mode (independent
@@ -319,6 +367,8 @@ class ServingEngine:
         out = {"live": len(live), "page_stats": self.pages.stats}
         if self.experts is not None:
             out["expert_stats"] = self.experts.stats
+        if self.tenants is not None:
+            out["tenant_stats"] = self.pages.qos.tenant_stats
         return out
 
     def run_until_idle(self, max_steps: int = 10_000) -> List[Request]:

@@ -109,7 +109,7 @@ class ExpertCache:
     def _make_assigner(self) -> PrimeAssigner:
         """Prime-assignment backend (overridden by the multi-tenant
         cache, which routes each expert to its tenant's namespace —
-        ``tenancy/``, still to port)."""
+        ``repro_torch.tenancy.qos``)."""
         return PrimeAssigner(HierarchicalPrimeAllocator(), self.registry)
 
     def _assign_expert(self, e: int) -> None:

@@ -124,7 +124,7 @@ class PagedKVCache:
     def _make_assigner(self) -> PrimeAssigner:
         """Prime-assignment backend (overridden by the multi-tenant
         cache, which routes each page to its tenant's namespace —
-        ``tenancy/``, still to port)."""
+        ``repro_torch.tenancy.qos``)."""
         return PrimeAssigner(HierarchicalPrimeAllocator(), self.registry)
 
     # ------------------------------------------------------------------ #

@@ -51,13 +51,14 @@ Two implementations, differentially fuzzed against each other
     on every ``PARITY_COUNTERS`` field, per-touch tier, HBM LRU order,
     and prefetch log when driven on the same arrival trace.
 
-Both compose with every ported cache backend (``kv="vec" | "scalar" |
-"sharded" | "elastic"``, ``moe=``, with ``device`` placing the discovery
-kernels) through the shared factories in ``engine.py``; ``kv="elastic"``
-exposes the same ``resize`` / ``fail_shard`` chaos hooks as
-``ServingEngine``.  Port of ``repro.serving.slots``; ``tenants=`` and
-``dedup=`` are still to port (ROADMAP.md A.11, A.12) and raise
-``NotImplementedError``.
+Both compose with every cache backend (``kv="vec" | "scalar" |
+"sharded" | "elastic"``, ``moe=``, ``tenants=``, ``dedup=``, with
+``device`` placing the discovery kernels) through the shared factories in
+``engine.py``; ``kv="elastic"`` exposes the same ``resize`` /
+``fail_shard`` chaos hooks as ``ServingEngine``.  With ``dedup=True`` an
+admitted request's leading shared-prefix run is already-computed
+read-only content, so both machines skip its prefill
+(``_register_admitted``).  Port of ``repro.serving.slots``.
 """
 
 from __future__ import annotations
@@ -71,8 +72,7 @@ from repro_torch.obs.trace import (EV_ADMIT, EV_COMPLETE, EV_PREEMPT,
                                    EV_PREFILL_CHUNK, EV_RESUME_PREFETCH)
 
 from .elastic import ElasticShardedPagedKVCache
-from .engine import (_STUB_VOCAB, _not_ported, check_not_ported,
-                     make_expert_backend, make_kv_backend,
+from .engine import (_STUB_VOCAB, make_expert_backend, make_kv_backend,
                      synthetic_router_groups)
 
 __all__ = ["SlotRequest", "SlotMachine", "SlotOracle",
@@ -178,7 +178,6 @@ class _SlotFrontEnd:
                  moe_groups: int = 16, moe_seed: int = 0, tenants=None,
                  max_bits: int = 62, dedup: bool = False, obs=None,
                  device="cuda"):
-        check_not_ported(tenants=tenants, dedup=dedup)
         if policy not in self.policy_choices:
             raise ValueError(f"policy must be one of "
                              f"{self.policy_choices}, got {policy!r}")
@@ -190,14 +189,20 @@ class _SlotFrontEnd:
         self.preempt_wait = preempt_wait
         self.prefill_tokens = max(1, int(prefill_tokens))
         self.reread_window = max(1, int(reread_window))
+        self.tenants = tenants
+        # dedup=True (tenants mode): shared-prefix pages discovered at
+        # admission are already-computed read-only content, so their
+        # prefill is skipped, identically in the machine and the oracle
+        self.dedup = bool(dedup)
         self.pages = make_kv_backend(
             kv, hbm_pages=hbm_pages, page_size=page_size,
             prefetch_budget=prefetch_budget, shards=shards, mesh=mesh,
-            max_bits=max_bits, device=device)
+            tenants=tenants, max_bits=max_bits, dedup=dedup, device=device)
         self.device = self.pages.device
         self.experts = make_expert_backend(
             moe, moe_experts=moe_experts, moe_slots=moe_slots,
-            moe_prefetch_budget=moe_prefetch_budget, device=device)
+            moe_prefetch_budget=moe_prefetch_budget, tenants=tenants,
+            device=device)
         self._moe_groups = synthetic_router_groups(
             moe_experts, moe_topk, moe_groups, moe_seed) \
             if self.experts is not None else None
@@ -230,8 +235,13 @@ class _SlotFrontEnd:
         """Queue a request that ARRIVES at tick ``arrival`` (open-loop:
         the engine sees it only once its tick comes — arrivals in the
         past arrive immediately).  Returns the request id."""
-        if tenant:
-            raise _not_ported("tenant ids", "A.11")
+        if tenant and self.tenants is None:
+            raise ValueError("tenant ids need tenants= mode (pass "
+                             "tenants=N or a TenantQoSConfig)")
+        if self.tenants is not None:
+            n = self.pages.qos_config.n_tenants
+            if not 0 <= int(tenant) < n:
+                raise ValueError(f"tenant {tenant} out of range [0, {n})")
         rid = len(self.requests)
         req = SlotRequest(rid, list(prompt), max(1, int(max_new_tokens)),
                           tenant=int(tenant),
@@ -316,6 +326,24 @@ class _SlotFrontEnd:
 
     # observability (shared emit points — both twins call these at the
     # same semantic step, so their event streams are bit-identical) ----- #
+
+    def _register_admitted(self, req: SlotRequest) -> None:
+        """Register an admitted request's prompt (under its tenant in
+        tenants mode) unless its chain is live already; with dedup, a
+        request that has not prefilled yet skips the prefill of its
+        leading shared-prefix run (the machine and the oracle both call
+        this, so the skip is the same in both)."""
+        if req.req_id in self.pages.chains:
+            return
+        if self.tenants is not None:
+            self.pages.register_request(req.req_id, req.prompt,
+                                        tenant=req.tenant)
+        else:
+            self.pages.register_request(req.req_id, req.prompt)
+        if self.dedup and req.prefill_done == 0:
+            skip = self.pages.dedup_prefix.get(req.req_id, 0) \
+                * self.page_size
+            req.prefill_done = min(req.n_prompt, skip)
 
     def _note_admit(self, slot: int, req: SlotRequest, t: int) -> None:
         if self.obs is not None:
@@ -458,8 +486,8 @@ class SlotMachine(_SlotFrontEnd):
                 self.age[i] = 0
                 fresh[i] = True
                 self._note_admit(i, req, t)
-                if req.req_id not in self.pages.chains:
-                    self.pages.register_request(req.req_id, req.prompt)
+                self._register_admitted(req)
+                self.prefill_done[i] = req.prefill_done
                 L = len(self.pages.chains[req.req_id])
                 self.chain_len[i] = L
                 if req.prefill_done >= req.n_prompt:
@@ -560,6 +588,8 @@ class SlotMachine(_SlotFrontEnd):
                "page_stats": self.pages.stats}
         if self.experts is not None:
             out["expert_stats"] = self.experts.stats
+        if self.tenants is not None:
+            out["tenant_stats"] = self.pages.qos.tenant_stats
         return out
 
 
@@ -631,8 +661,7 @@ class SlotOracle(_SlotFrontEnd):
                 self.slot_age[i] = 0
                 fresh.add(i)
                 self._note_admit(i, req, t)
-                if req.req_id not in self.pages.chains:
-                    self.pages.register_request(req.req_id, req.prompt)
+                self._register_admitted(req)
                 L = len(self.pages.chains[req.req_id])
                 if req.prefill_done >= req.n_prompt:
                     req.state = "decode"
@@ -717,4 +746,6 @@ class SlotOracle(_SlotFrontEnd):
                "page_stats": self.pages.stats}
         if self.experts is not None:
             out["expert_stats"] = self.experts.stats
+        if self.tenants is not None:
+            out["tenant_stats"] = self.pages.qos.tenant_stats
         return out

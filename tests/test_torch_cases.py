@@ -1,11 +1,13 @@
 """The port's benchmark cases (``repro_torch.cases``) and their runner on
 the CPU: ``python -m repro_torch.cases`` writes ``case_serving``,
-``case_batching``, ``case_elastic`` and ``case_moe`` at their smoke
-configurations, and ``tools/check_bench_regression.py`` passes them
-against copies of the checked-in ``BENCH_case_*.json`` (and fails a
-drifted key).  At full size, the reference's ``case_elastic`` and
-``case_moe`` (synthetic router) give the counters ``chip_smoke.py``
-holds the card to, and so does the port.
+``case_batching``, ``case_elastic``, ``case_moe``, ``case_tenancy`` and
+``case_dedup`` at their smoke configurations, and
+``tools/check_bench_regression.py`` passes them against copies of the
+checked-in ``BENCH_case_*.json`` (and fails a drifted key).  At full
+size, the reference's ``case_elastic``, ``case_moe`` (synthetic router),
+``case_tenancy`` and ``case_dedup`` give the counters ``chip_smoke.py``
+holds the card to, and so does the port.  ``run_table1`` uses
+``benchmarks/table1.py``'s configuration and gives its rows.
 
 The port runs with ``device="cpu"`` (the kernels' plain versions).
 """
@@ -22,7 +24,7 @@ import pytest
 from repro_torch import cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SMOKE_CASES = ("serving", "batching", "elastic", "moe")
+SMOKE_CASES = ("serving", "batching", "elastic", "moe", "tenancy", "dedup")
 
 
 def _gate():
@@ -36,7 +38,7 @@ def _gate():
 
 @pytest.fixture(scope="module")
 def fresh(tmp_path_factory):
-    """The runner's output directory after one CPU run of the four smoke
+    """The runner's output directory after one CPU run of the six smoke
     cases."""
     out = tmp_path_factory.mktemp("bench_torch")
     assert cases.main(["--out", str(out), "--device", "cpu",
@@ -88,9 +90,9 @@ def test_case_moe_real_router_names_its_roadmap_item():
 
 def test_bench_payload_names_each_case():
     with pytest.raises(ValueError):
-        cases.bench_payload("case_tenancy", {})
+        cases.bench_payload("case_unknown", {})
     with pytest.raises(ValueError):
-        cases.run_case("dedup", full=False, device="cpu")
+        cases.run_case("unknown", full=False, device="cpu")
 
 
 # --------------------------------------------------------------------------- #
@@ -100,13 +102,23 @@ def test_bench_payload_names_each_case():
 @pytest.fixture()
 def reference_cases(monkeypatch):
     """``benchmarks/cases.py`` with its file writers off (a full-size
-    run must not overwrite the checked-in smoke files)."""
+    run must not overwrite the checked-in smoke files); what ``save_bench``
+    would have written is kept in ``ref_cases.written`` by case name, as
+    the JSON file would hold it."""
     monkeypatch.syspath_prepend(ROOT)
     from benchmarks import cases as ref_cases
 
+    written = {}
     monkeypatch.setattr(ref_cases, "save_json", lambda *a, **k: None)
-    monkeypatch.setattr(ref_cases, "save_bench", lambda *a, **k: None)
+    monkeypatch.setattr(ref_cases, "save_bench",
+                        lambda name, payload: written.__setitem__(
+                            name, _as_json(payload)))
+    monkeypatch.setattr(ref_cases, "written", written, raising=False)
     return ref_cases
+
+
+def _as_json(payload):
+    return json.loads(json.dumps(payload, default=float, sort_keys=True))
 
 
 def _holds(want, got):
@@ -134,6 +146,99 @@ def test_moe_full_counters_are_the_references(reference_cases):
         smoke=False, real_router=False))
     assert _holds(smoke.MOE_FULL, cases.case_moe(
         smoke=False, real_router=False, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["tenancy", "dedup"])
+def test_tenancy_and_dedup_full_counters_are_the_references(
+        reference_cases, case):
+    """The reference's full ``case_tenancy`` / ``case_dedup`` write the
+    BENCH keys ``chip_smoke.TENANCY_FULL`` / ``DEDUP_FULL`` record (the
+    dedup ones with ``dedup_hits`` 896 and ``cow_copies`` 58), and the
+    port's full cases give the same keys."""
+    smoke = torch_parity.chip_smoke()
+    want = {"tenancy": smoke.TENANCY_FULL, "dedup": smoke.DEDUP_FULL}[case]
+    getattr(reference_cases, f"case_{case}")(smoke=False)
+    assert reference_cases.written[f"case_{case}"] == want
+    out = getattr(cases, f"case_{case}")(smoke=False, device="cpu")
+    assert _as_json(cases.bench_payload(f"case_{case}", out)) == want
+
+
+def test_table1_configuration_is_the_references(monkeypatch):
+    """``run_table1``'s levels, systems and paper values are
+    ``benchmarks/table1.py``'s, and its workloads give the reference's
+    traces at full length and at a twentieth (seeds 0 and 1)."""
+    import numpy as np
+
+    import repro.core as R
+
+    monkeypatch.syspath_prepend(ROOT)
+    from benchmarks import table1
+
+    assert cases.TABLE1_CAPS == table1.CAPS
+    assert cases.TABLE1_SYSTEMS == table1.SYSTEMS
+    assert cases.TABLE1_PAPER == table1.PAPER
+    from repro_torch.core import traces
+
+    for scale in (1.0, 0.05):
+        ref = table1._workloads(scale)
+        port = cases.table1_workloads(scale)
+        assert list(port) == list(ref)
+        for name, (gen, kw) in port.items():
+            for seed in (0, 1):
+                want = ref[name](seed)
+                got = getattr(traces, gen)(seed=seed, **kw)
+                assert np.array_equal(np.asarray(want.accesses),
+                                      got.accesses), (name, scale, seed)
+                assert want.n_keys == got.n_keys
+                assert getattr(R, gen).__name__ == gen
+
+
+@pytest.mark.parametrize("discover", ["host", "kernel"])
+def test_run_table1_gives_the_references_rows(monkeypatch, discover):
+    """``run_table1`` at two trials of small workloads (the same cut
+    applied to both packages' configuration) gives
+    ``benchmarks/table1.py::run``'s rows for every system: hit rate,
+    latency and power reductions (mean, std), accuracy, speedup and the
+    paper's values.  With ``discover="kernel"`` the counters are the
+    same and only PFCS's factorization-op count, which the latency and
+    power rows read, follows the reference's kernel discovery."""
+    import jax
+    import jax.experimental
+
+    import repro.core as R
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                        raising=False)
+    monkeypatch.syspath_prepend(ROOT)
+    from benchmarks import table1
+
+    small = {"db_join": ("db_join_trace", dict(
+        n_orders=300, n_customers=60, n_items=120, n_queries=300)),
+             "ml_epoch": ("ml_epoch_trace", dict(
+                 n_samples=120, n_feature_rows=40, n_epochs=1)),
+             "hft": ("hft_trace", dict(n_instruments=200, n_corr_groups=30,
+                                       n_events=300))}
+    monkeypatch.setattr(cases, "table1_workloads", lambda scale=1.0: small)
+    monkeypatch.setattr(table1, "_workloads", lambda scale: {
+        w: (lambda seed, g=gen, k=kw: getattr(R, g)(seed=seed, **k))
+        for w, (gen, kw) in small.items()})
+    monkeypatch.setattr(table1, "save_json", lambda *a, **k: None)
+    ref = table1.run(n_trials=2)
+    got = cases.run_table1(2, 0, "cpu", discover=discover)
+    systems = cases.TABLE1_SYSTEMS
+    assert [k for k in got if not k.startswith("_")] == list(systems)
+    if discover == "host":
+        assert {s: got[s] for s in systems} == {s: ref[s] for s in systems}
+    else:
+        assert all(got[s] == ref[s] for s in systems if s != "pfcs")
+        assert got["pfcs"]["hit"] == ref["pfcs"]["hit"]
+        assert got["pfcs"]["acc"] == ref["pfcs"]["acc"]
+    assert set(got["_wall_s"]) == set(ref["_wall_s"])
+    run = got["_runs"]["hft"]
+    assert len(run["traces"]) == 2 and len(run["tables"]) == 2
+    assert set(run["stats"]) == set(systems)
+    with pytest.raises(ValueError, match="lru"):
+        cases.run_table1(1, 0, "cpu", systems=("arc",))
 
 
 def test_case_scale_returns_the_references_obs_block():

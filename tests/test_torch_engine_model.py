@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import repro.core as R
+from repro_torch import cases
 from repro_torch.core.engine.batch import key_space, stack_accesses
 from repro_torch.core.engine.policies_vec import (POLICY_TICKS, lirs_sizes,
                                                   twoq_sizes)
@@ -766,14 +767,14 @@ def test_free_set_finds_the_lowest_free_slot():
             assert fs.first() == (min(free) if free else None)
 
 
-TABLE1_CAPS = [c for _, c in chip_smoke().TABLE1_CAPS]
+TABLE1_CAPS = [c for _, c in cases.TABLE1_CAPS]
 
 
 @pytest.fixture(scope="module")
 def table1_traces():
     cs = chip_smoke()
     return {w: cs._make_trace(gen, seed=0, **kw)
-            for w, (gen, kw) in cs.TABLE1_WORKLOADS.items()}
+            for w, (gen, kw) in cases.table1_workloads().items()}
 
 
 def _ref_trace(tr):
@@ -791,7 +792,7 @@ def test_baseline_model_equals_oracle_on_table1(policy, workload,
     hits, miss, demand, _ = run_baseline(
         [int(k) for k in tr.accesses], policy, TABLE1_CAPS,
         key_space([tr]))
-    want = R.simulate_baseline(policy, _ref_trace(tr), cs.TABLE1_CAPS)
+    want = R.simulate_baseline(policy, _ref_trace(tr), cases.TABLE1_CAPS)
     assert hits == list(want.hits_per_level.values())
     assert (miss, demand) == (want.misses, want.demand_accesses)
     assert (sum(hits), demand) == cs.TABLE1_SEED0[workload][policy]
@@ -802,7 +803,7 @@ def test_pfcs_model_equals_oracle_on_table1(workload, table1_traces):
     cs = chip_smoke()
     tr = table1_traces[workload]
     n_keys = key_space([tr])
-    tb = pfcs_tables(tr, cs.TABLE1_CAPS, n_keys=n_keys, device="cpu")
+    tb = pfcs_tables(tr, cases.TABLE1_CAPS, n_keys=n_keys, device="cpu")
     m = run_pfcs([int(k) for k in tr.accesses], TABLE1_CAPS, n_keys, 4, 8,
                  True, False, np.asarray(tb.targets).tolist(),
                  np.asarray(tb.truth).tolist(),

@@ -20,6 +20,7 @@ from repro.core.engine import pfcs_tables as ref_pfcs_tables
 from repro.core.engine import simulate_trace as ref_simulate_trace
 from repro.core.engine.hierarchy import build_hierarchy as ref_hierarchy
 from repro.core.engine.pfcs_vec import build_pfcs as ref_build_pfcs
+from repro_torch import cases
 from repro_torch.core import Trace
 from repro_torch.core.engine import PFCSTables, simulate_trace
 from repro_torch.kernels.engine import baseline_scan, pfcs_scan
@@ -167,13 +168,13 @@ def test_table1_pfcs_counters_are_the_reference_oracles(workload):
     trial, at ``benchmarks/table1.py``'s configuration; the port's
     generators give the same traces."""
     cs = chip_smoke()
-    gen, kw = cs.TABLE1_WORKLOADS[workload]
+    gen, kw = cases.table1_workloads()[workload]
     want = []
     for seed in range(cs.TABLE1_TRIALS):
         tr = getattr(R, gen)(seed=seed, **kw)
         assert np.array_equal(np.asarray(tr.accesses),
                               cs._make_trace(gen, seed=seed, **kw).accesses)
-        st = R.simulate_pfcs(tr, cs.TABLE1_CAPS)
+        st = R.simulate_pfcs(tr, cases.TABLE1_CAPS)
         want.append((tuple(st.hits_per_level.values()), st.misses,
                      st.demand_accesses, st.prefetches_issued,
                      st.prefetches_used, st.prefetches_true))

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import cases
 from repro_torch.core.composite import pack_limbs
 from repro_torch.kernels import factorize, gcd, launch_counts, ops, ref
 from repro_torch.serving.engine import ServingEngine
@@ -431,7 +432,7 @@ def _shortened_table1(length):
 
     cs = chip_smoke()
     out = []
-    for gen, kw in cs.TABLE1_WORKLOADS.values():
+    for gen, kw in cases.table1_workloads().values():
         tr = cs._make_trace(gen, seed=0, **kw)
         out.append(Trace(name=tr.name, accesses=tr.accesses[:length],
                          relationships=tr.relationships, n_keys=tr.n_keys,

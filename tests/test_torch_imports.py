@@ -1,9 +1,9 @@
 """The port's boundaries: it imports neither JAX nor the reference, its
 entry points default to the card and raise without one, the parts of
 the reference it does not have yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them (wide registries no longer do), and
-``chip_smoke.py`` exits non-zero without a card and names the phase
-that failed."""
+the ROADMAP.md item that ports them (wide registries, tenants and dedup
+no longer do), and ``chip_smoke.py`` exits non-zero without a card and
+names the phase that failed."""
 
 import torch_parity  # noqa: F401
 
@@ -24,7 +24,8 @@ from repro_torch.core.engine.tables import (make_pfcs_cache, pfcs_tables,
                                             related_bulk, successor_table)
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.cases import case_elastic, case_moe, case_serving
+from repro_torch.cases import (case_dedup, case_elastic, case_moe,
+                               case_serving, case_tenancy, run_table1)
 from repro_torch.serving.elastic import ElasticShardedPagedKVCache
 from repro_torch.serving.engine import (ServingEngine, make_expert_backend,
                                         make_kv_backend)
@@ -34,6 +35,14 @@ from repro_torch.serving.kv_cache import PagedKVCache
 from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
 from repro_torch.serving.kv_cache_vec import VectorizedPagedKVCache
 from repro_torch.serving.slots import SlotMachine, SlotOracle
+from repro_torch.serving.dedup import (DedupElasticShardedPagedKVCache,
+                                       DedupOracle, DedupShardedPagedKVCache,
+                                       DedupVectorizedPagedKVCache)
+from repro_torch.tenancy import (TenantedExpertCache, TenantedPagedKVCache,
+                                 TenantedShardedPagedKVCache,
+                                 TenantedVectorizedExpertCache,
+                                 TenantedVectorizedPagedKVCache)
+from repro_torch.tenancy.qos import TenantedElasticShardedPagedKVCache
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -71,8 +80,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr + out.stdout
 
 
-def _cache(cls):
-    return lambda **kw: cls(hbm_pages=4, **kw)
+def _cache(cls, **extra):
+    return lambda **kw: cls(hbm_pages=6, **extra, **kw)
 
 
 ENTRY_POINTS = {
@@ -93,6 +102,28 @@ ENTRY_POINTS = {
     "case_serving": lambda **kw: case_serving(smoke=True, **kw),
     "case_elastic": lambda **kw: case_elastic(smoke=True, **kw),
     "case_moe": lambda **kw: case_moe(smoke=True, **kw),
+    "case_tenancy": lambda **kw: case_tenancy(smoke=True, **kw),
+    "case_dedup": lambda **kw: case_dedup(smoke=True, **kw),
+    "run_table1": lambda **kw: run_table1(1, 0, trace_scale=0.001,
+                                          systems=("lru",), **kw),
+    "TenantedPagedKVCache": _cache(TenantedPagedKVCache, qos=2),
+    "TenantedVectorizedPagedKVCache": _cache(TenantedVectorizedPagedKVCache,
+                                             qos=2),
+    "TenantedShardedPagedKVCache": _cache(TenantedShardedPagedKVCache,
+                                          qos=2),
+    "TenantedElasticShardedPagedKVCache": _cache(
+        TenantedElasticShardedPagedKVCache, qos=2),
+    "DedupOracle": _cache(DedupOracle, qos=2),
+    "DedupVectorizedPagedKVCache": _cache(DedupVectorizedPagedKVCache,
+                                          qos=2),
+    "DedupShardedPagedKVCache": _cache(DedupShardedPagedKVCache, qos=2),
+    "DedupElasticShardedPagedKVCache": _cache(
+        DedupElasticShardedPagedKVCache, qos=2),
+    "TenantedExpertCache": lambda **kw: TenantedExpertCache(
+        8, hbm_slots=2, qos=2, **kw),
+    "TenantedVectorizedExpertCache": lambda **kw:
+        TenantedVectorizedExpertCache(8, hbm_slots=2, qos=2,
+                                      discover="kernel", **kw),
     "successor_table": lambda **kw: successor_table(
         *_registry(), [0], discover="kernel", **kw),
     "sharded_successor_table": lambda **kw: sharded_successor_table(
@@ -141,9 +172,6 @@ def test_default_device_needs_a_card(name, monkeypatch, capsys):
 
 
 NOT_PORTED = {
-    "tenants": (lambda: ServingEngine(None, None, tenants=2, device="cpu"),
-                "A.11"),
-    "dedup": (lambda: SlotMachine(dedup=True, device="cpu"), "A.12"),
     "model": (lambda: ServingEngine(object(), None, device="cpu"), "A.14"),
     "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
              "A.8"),
@@ -156,6 +184,23 @@ def test_unported_features_raise(name):
     fn, item = NOT_PORTED[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         fn()
+
+
+@pytest.mark.parametrize("engine", ["ServingEngine", "SlotMachine",
+                                    "SlotOracle"])
+def test_tenants_and_dedup_are_ported(engine):
+    """``tenants=`` and ``dedup=`` no longer raise: each engine serves two
+    tenants sharing a prompt, with the dedup cache of its backend."""
+    eng = (ServingEngine(None, None, page_size=4, hbm_pages=12, tenants=2,
+                         dedup=True, device="cpu")
+           if engine == "ServingEngine" else
+           globals()[engine](page_size=4, hbm_pages=12, tenants=2,
+                             dedup=True, device="cpu"))
+    for t in (0, 1):
+        eng.submit(list(range(12)) + [50 + t], max_new_tokens=2, tenant=t)
+    eng.run_until_idle()
+    assert isinstance(eng.pages, DedupVectorizedPagedKVCache)
+    assert eng.pages.stats.dedup_promotions > 0
 
 
 def test_wide_registries_are_ported():
@@ -190,18 +235,12 @@ PORT_ADDITIONS = {
     "serving": {"make_kv_backend"},
 }
 #: the reference's exports the port does not have yet, by the ROADMAP.md
-#: queue A item that ports them
-NOT_YET = {
-    "serving": {
-        "A.12": {"DEDUP_COUNTERS", "DedupElasticShardedPagedKVCache",
-                 "DedupOracle", "DedupShardedPagedKVCache",
-                 "DedupVectorizedPagedKVCache"},
-    },
-}
+#: queue A item that ports them (none of these packages' now)
+NOT_YET = {}
 
 
 @pytest.mark.parametrize("package", ["core", "core.engine", "kernels",
-                                     "obs", "serving"])
+                                     "obs", "serving", "tenancy"])
 def test_package_exports_match_the_reference(package):
     """Each ported package's ``__all__`` is the reference's, apart from the
     named additions and the names whose ROADMAP item is still open; every
@@ -444,9 +483,13 @@ def test_chip_smoke_busy_bound_needs_every_launch_inside(monkeypatch):
     launches = {name: 3 for name in chip_smoke.FLAT}
     rows = [{"name": name, "device_ms": 6.0} for name in chip_smoke.FLAT]
     seconds = {"refresh_s": 4.0, "kernel_calls_s": 1.0,
-               "kernel_calls_launches": 9}
+               "probe_calls_s": 0.0, "kernel_calls_launches": 9}
     split = chip_smoke.time_split(10.0, seconds, launches, rows)
     assert split["device_busy_upper_share"] == 0.1
+    # a dedup admission probe's calls, outside the refresh, count too
+    assert chip_smoke.time_split(10.0, dict(seconds, probe_calls_s=1.0),
+                                 launches, rows)[
+        "device_busy_upper_share"] == 0.2
     assert split["launches_outside_kernel_calls"] == 0
     assert split["device_busy_graph_est_s"] == pytest.approx(0.018)
     assert split["device_ms_by_kernel"] == dict.fromkeys(chip_smoke.FLAT,
@@ -643,6 +686,10 @@ def _count_plain_launches(monkeypatch, names):
     plain = {"divisibility_mask": (factorize, "divisibility_mask_ref"),
              "factorize_squarefree": (factorize, "factorize_squarefree_ref"),
              "gcd": (gcd, "gcd_ref"),
+             "divisibility_mask_limbs": (factorize,
+                                         "divisibility_mask_limbs_ref"),
+             "factorize_limbs": (factorize, "factorize_limbs_ref"),
+             "gcd_limbs": (gcd, "gcd_limbs_ref"),
              "engine_baseline": (engine, "baseline_scan_ref"),
              "engine_pfcs": (engine, "pfcs_scan_ref")}
     for name in names:
@@ -750,31 +797,45 @@ def test_chip_smoke_engine_check_fails_on_a_wrong_kernel(monkeypatch):
         chip_smoke.check_engine("engine_baseline", args)
 
 
-def test_chip_smoke_table1_on_cpu(monkeypatch):
-    """``table1`` on the CPU with the workloads cut small: every system's
-    counters equal the scalar oracles' (PFCS's, every trial, as
-    ``TABLE1_PFCS`` records them), the engine kernels launch once a
-    system and workload, the flat mask and factorization launch (PFCS's
-    kernel discovery) and are held against their plain versions, every
-    engine call has its bound, and a seed-0 count or a recorded PFCS
-    counter that is off fails the phase."""
-    chip_smoke = _cpu_smoke(monkeypatch)
-    _count_plain_launches(monkeypatch, ["divisibility_mask",
-                                        "factorize_squarefree",
-                                        "engine_baseline", "engine_pfcs"])
+def _small_table1(monkeypatch, hft_only: bool) -> dict:
+    """``repro_torch.cases``' Table-1 configuration cut small: levels 8 /
+    16 / 64 and 300-access traces of db_join and hft (or hft alone)."""
+    from repro_torch import cases
+
     small = {"db_join": ("db_join_trace", dict(
         n_orders=300, n_customers=60, n_items=120, n_queries=300)),
              "hft": ("hft_trace", dict(n_instruments=200, n_corr_groups=30,
                                        n_events=300))}
-    monkeypatch.setattr(chip_smoke, "TABLE1_WORKLOADS", small)
-    monkeypatch.setattr(chip_smoke, "TABLE1_TRIALS", 2)
-    monkeypatch.setattr(chip_smoke, "TABLE1_CAPS",
+    if hft_only:
+        del small["db_join"]
+    monkeypatch.setattr(cases, "table1_workloads", lambda scale=1.0: small)
+    monkeypatch.setattr(cases, "TABLE1_CAPS",
                         (("L1", 8), ("L2", 16), ("L3", 64)))
+    return small
+
+
+def test_chip_smoke_table1_on_cpu(monkeypatch):
+    """``table1`` on the CPU with the workloads cut small (the
+    configuration of ``repro_torch.cases.run_table1``, which the phase
+    runs): every system's counters equal the scalar oracles' (PFCS's,
+    every trial, as ``TABLE1_PFCS`` records them), the engine kernels
+    launch once a system and workload, the flat mask and factorization
+    launch (PFCS's kernel discovery) and are held against their plain
+    versions, every engine call has its bound, the phase reports
+    ``run_table1``'s rows, and a seed-0 count or a recorded PFCS counter
+    that is off fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, ["divisibility_mask",
+                                        "factorize_squarefree",
+                                        "engine_baseline", "engine_pfcs"])
+    small = _small_table1(monkeypatch, hft_only=False)
+    monkeypatch.setattr(chip_smoke, "TABLE1_TRIALS", 2)
     monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {})
+    from repro_torch.cases import TABLE1_CAPS
     from repro_torch.core import simulate_baseline, simulate_pfcs
 
     pfcs = {w: [chip_smoke.pfcs_counters(simulate_pfcs(
-        chip_smoke._make_trace(gen, seed=s, **kw), chip_smoke.TABLE1_CAPS))
+        chip_smoke._make_trace(gen, seed=s, **kw), TABLE1_CAPS))
         for s in range(2)] for w, (gen, kw) in small.items()}
     monkeypatch.setattr(chip_smoke, "TABLE1_PFCS", pfcs)
     ctx = chip_smoke.Context()
@@ -789,6 +850,8 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
     assert all(ctx.engine_path[n]["path_bound_ms"] > 0
                for n in chip_smoke.ENGINE)
     assert set(out["engine_ptxas"]) == set(chip_smoke.ENGINE)
+    assert list(out["rows"]) == list(chip_smoke.BASELINES) + ["pfcs"]
+    assert out["rows"]["lru"]["hit"][0] > 0
     rows = [r for ln in lines if ln["phase"] == "table1_workload"
             for r in ln["systems"].values()]
     assert len(rows) == 12
@@ -797,7 +860,7 @@ def test_chip_smoke_table1_on_cpu(monkeypatch):
                and r["placement"] is None for r in rows)
 
     tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
-    lru = simulate_baseline("lru", tr, chip_smoke.TABLE1_CAPS)
+    lru = simulate_baseline("lru", tr, TABLE1_CAPS)
     monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", {
         "hft": {"lru": (lru.hits + 1, lru.demand_accesses)}})
     with pytest.raises(AssertionError, match="seed-0 hits"):
@@ -814,19 +877,16 @@ def test_chip_smoke_table1_times_on_cpu(monkeypatch):
     small: this tree's port, each (workload, system) the least of two
     launches, its seed-0 hits held to ``TABLE1_SEED0`` (one off fails)."""
     chip_smoke = _cpu_smoke(monkeypatch)
-    small = {"hft": ("hft_trace", dict(n_instruments=200, n_corr_groups=30,
-                                       n_events=300))}
-    monkeypatch.setattr(chip_smoke, "TABLE1_WORKLOADS", small)
+    small = _small_table1(monkeypatch, hft_only=True)
     monkeypatch.setattr(chip_smoke, "TABLE1_TRIALS", 1)
-    monkeypatch.setattr(chip_smoke, "TABLE1_CAPS",
-                        (("L1", 8), ("L2", 16), ("L3", 64)))
     monkeypatch.setattr(sys, "path", list(sys.path))
+    from repro_torch.cases import TABLE1_CAPS
     from repro_torch.core import simulate_baseline, simulate_pfcs
 
     tr = chip_smoke._make_trace("hft_trace", seed=0, **small["hft"][1])
-    seed0 = {s: simulate_baseline(s, tr, chip_smoke.TABLE1_CAPS)
+    seed0 = {s: simulate_baseline(s, tr, TABLE1_CAPS)
              for s in chip_smoke.BASELINES}
-    seed0["pfcs"] = simulate_pfcs(tr, chip_smoke.TABLE1_CAPS)
+    seed0["pfcs"] = simulate_pfcs(tr, TABLE1_CAPS)
     seed0 = {"hft": {s: (st.hits, st.demand_accesses)
                      for s, st in seed0.items()}}
     monkeypatch.setattr(chip_smoke, "TABLE1_SEED0", seed0)
@@ -992,6 +1052,70 @@ def test_chip_smoke_obs_phase_on_cpu(monkeypatch, tmp_path):
     ledger = {k: dict(v) for k, v in out["ledger"].items()}
     ledger["gcd_batch"] = {"calls": 1}
     assert chip_smoke.ledger_failures(ledger, out["launches"], 2)
+
+
+def test_chip_smoke_tenancy_phase_on_cpu(monkeypatch):
+    """``tenancy`` on the CPU at its full sizes: the smoke run matches
+    ``BENCH_case_tenancy.json`` and launches nothing, the full run
+    matches ``TENANCY_FULL``, the sharded and elastic runs equal the vec
+    run and launch the mask and the gcd (held against their plain
+    versions at every shape) but no factorization, as no tenant's chain
+    crosses shards, and a recorded counter that is off fails the
+    phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, chip_smoke.FLAT)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    out = chip_smoke.phase_tenancy(chip_smoke.Context())
+    assert not any(out["smoke_launches"].values())
+    for kv in ("sharded", "elastic"):
+        launched = sorted(k for k, n in out[kv]["launches"].items() if n)
+        assert launched == sorted(chip_smoke.TENANCY_SHARDED)
+        assert sorted(out[kv]["shapes_checked"]) == launched
+        assert out[kv]["bulk_refreshes"] > 0
+        assert out[kv]["isolation_composites"] == 764
+        split = out[kv]["time_split"]
+        assert split["refresh_s"] > split["kernel_calls_s"] > 0
+    checked = {ln["phase"] for ln in lines}
+    assert {"kernel_tenancy_sharded", "kernel_tenancy_elastic"} <= checked
+    monkeypatch.setattr(chip_smoke, "TENANCY_FULL", dict(
+        chip_smoke.TENANCY_FULL, completed=111))
+    with pytest.raises(AssertionError, match="case_tenancy.completed"):
+        chip_smoke.phase_tenancy(chip_smoke.Context())
+
+
+def test_chip_smoke_dedup_phase_on_cpu(monkeypatch):
+    """``dedup`` on the CPU at its full sizes: the smoke and full runs
+    match ``BENCH_case_dedup.json`` and ``DEDUP_FULL`` and their admission
+    probes launch the gcd and the factorization, the sharded and elastic
+    runs (the flat mask, gcd and factorization) and the 128-bit run (the
+    limb gcd) equal the narrow vec run, and a recorded counter that is
+    off fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, chip_smoke.FLAT + chip_smoke.LIMB)
+    monkeypatch.setattr(chip_smoke, "emit", lambda obj: None)
+    out = chip_smoke.phase_dedup(chip_smoke.Context())
+    assert out["probes"] == 54
+    assert out["smoke_launches"]["gcd"] > 0
+    assert out["launches"]["factorize_squarefree"] > 0
+    for label in ("dedup_sharded", "dedup_elastic"):
+        assert all(out[label]["launches"][k] > 0 for k in chip_smoke.FLAT)
+        assert out[label]["bulk_refreshes"] > 0
+    wide = out["dedup_vec_128"]
+    assert wide["launches"]["gcd_limbs"] > 0 and wide["probes"] == 54
+    assert wide["bulk_refreshes"] == 0
+    # every launch, the probes' included, falls inside a timed kernel call
+    for split in [out["dedup_vec_time_split"]] + [
+            out[k]["time_split"] for k in ("dedup_sharded", "dedup_elastic",
+                                           "dedup_vec_128")]:
+        assert split["launches_outside_kernel_calls"] == 0
+        assert split["kernel_calls_s"] + split["probe_calls_s"] > 0
+        assert split["refresh_host_python_s"] >= 0
+    counters = dict(chip_smoke.DEDUP_FULL["counters"], cow_copies=57)
+    monkeypatch.setattr(chip_smoke, "DEDUP_FULL", dict(
+        chip_smoke.DEDUP_FULL, counters=counters))
+    with pytest.raises(AssertionError, match="counters.cow_copies"):
+        chip_smoke.phase_dedup(chip_smoke.Context())
 
 
 def test_chip_smoke_golden_arrivals_are_the_tests():

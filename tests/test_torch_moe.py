@@ -175,8 +175,15 @@ def test_bad_configs_raise():
                             moe_prefetch_budget=1, device="cpu")
     assert make_expert_backend(None, moe_experts=8, moe_slots=2,
                                moe_prefetch_budget=1) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-        make_expert_backend("vec", moe_experts=8, moe_slots=2,
+    # tenants= is ported: it picks the tenant-partitioned expert cache
+    from repro_torch.tenancy import TenantedVectorizedExpertCache
+
+    tenanted = make_expert_backend("vec", moe_experts=8, moe_slots=2,
+                                   moe_prefetch_budget=1, tenants=2,
+                                   device="cpu")
+    assert isinstance(tenanted, TenantedVectorizedExpertCache)
+    with pytest.raises(ValueError):
+        make_expert_backend("magic", moe_experts=8, moe_slots=2,
                             moe_prefetch_budget=1, tenants=2, device="cpu")
 
 

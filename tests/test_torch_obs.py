@@ -9,6 +9,11 @@ the reference's (``repro.obs``).
   * **Inertness** — ``obs=None``, a zero-capacity tracer and a live
     tracer leave the port's placement byte-identical, and equal to the
     reference's.
+  * **Dedup streams** — the reference's dedup backends (``kv="vec"`` and
+    ``"scalar"`` with ``tenants=2, dedup=True``) on a two-tenant trace:
+    the ``EV_DEDUP_HIT`` / ``EV_DEDUP_PROMOTE`` / ``EV_COW`` streams, and a
+    drive that ages shared pages out (``EV_AGE_OUT``), equal the
+    reference's under ``trace_diff``; tracing stays inert.
   * **Telemetry** — the gauge rings and histograms of a slot-machine run
     and of a ``ServingEngine`` run equal the reference's.
   * **Kernel ledger** — every wrapper (and the per-shard gcd exchange)
@@ -37,8 +42,9 @@ from repro.serving.engine import ServingEngine as RefEngine
 from repro.serving.kv_cache_sharded import ShardedPagedKVCache as RefSharded
 from repro_torch import obs
 from repro_torch.kernels import ops
-from repro_torch.obs import (EV_GCD_EXCHANGE, EV_RECOVERY, Observability,
-                             attach, profile, trace_diff)
+from repro_torch.obs import (EV_AGE_OUT, EV_COW, EV_DEDUP_HIT,
+                             EV_DEDUP_PROMOTE, EV_GCD_EXCHANGE, EV_RECOVERY,
+                             Observability, attach, profile, trace_diff)
 from repro_torch.obs.telemetry import Progress, StreamingHist, Telemetry
 from repro_torch.obs.trace import EventTracer
 from repro_torch.serving import slots
@@ -62,8 +68,18 @@ KVS = ("vec", "scalar", "sharded", "elastic")
 TWINS = ("SlotMachine", "SlotOracle")
 
 
-def _drive(pkg, cls, kv, spec, ob):
+#: a two-tenant trace sharing prompt prefixes across tenants (the dedup
+#: slot-machine case of ``tests/test_dedup.py``)
+DEDUP_SPEC = ArrivalSpec(seed=5, n_requests=18, rate=1.5, max_prompt=24,
+                         max_new=8, shared_pool=16, n_tenants=2)
+#: the reference's dedup backends (``tests/test_obs.py``'s sweep)
+DEDUP_KVS = ("vec", "scalar")
+
+
+def _drive(pkg, cls, kv, spec, ob, dedup=False):
     kw = dict(device="cpu") if pkg is slots else {}
+    if dedup:
+        kw.update(tenants=2, dedup=True)
     eng = getattr(pkg, cls)(kv=kv, obs=ob, **CFG, **kw)
     drive_slots(eng, build_poisson_arrivals(spec))
     return eng
@@ -129,6 +145,78 @@ def test_tracing_is_inert_and_placement_equals_the_reference(cls, kv):
     assert live.trace.total > 0 and zero.trace.total == live.trace.total
     assert live.telemetry.ticks_seen == eng.ticks
     assert _placement(_drive(ref_slots, cls, kv, SWEEP_SPEC, None)) == base
+
+
+# --------------------------------------------------------------------------- #
+# dedup streams                                                               #
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("cls", TWINS)
+@pytest.mark.parametrize("kv", DEDUP_KVS)
+def test_dedup_event_streams_equal_the_reference(cls, kv):
+    """With ``tenants=2, dedup=True`` the port's stream, with its dedup
+    hits, promotions and copies-on-write, equals the reference's and the
+    other twin's."""
+    port = Observability(trace_capacity=8192)
+    ref = ref_obs.Observability(trace_capacity=8192)
+    _drive(slots, cls, kv, DEDUP_SPEC, port, dedup=True)
+    _drive(ref_slots, cls, kv, DEDUP_SPEC, ref, dedup=True)
+    kinds = {e.kind for e in port.trace.events()}
+    assert {EV_DEDUP_HIT, EV_DEDUP_PROMOTE, EV_COW} <= kinds
+    assert trace_diff(port.trace, ref.trace) is None
+    other = Observability(trace_capacity=8192)
+    _drive(slots, TWINS[1 - TWINS.index(cls)], kv, DEDUP_SPEC, other,
+           dedup=True)
+    assert trace_diff(port.trace, other.trace) is None
+
+
+@pytest.mark.parametrize("cls", TWINS)
+@pytest.mark.parametrize("kv", DEDUP_KVS)
+def test_dedup_tracing_is_inert(cls, kv):
+    """The inertness sweep over the dedup backends: ``obs=None``, a
+    zero-capacity and a live tracer place alike, as the reference does."""
+    base = _placement(_drive(slots, cls, kv, DEDUP_SPEC, None, dedup=True))
+    zero = Observability(trace_capacity=0, telemetry=False)
+    live = Observability(trace_capacity=4096)
+    assert _placement(_drive(slots, cls, kv, DEDUP_SPEC, zero,
+                             dedup=True)) == base
+    eng = _drive(slots, cls, kv, DEDUP_SPEC, live, dedup=True)
+    assert _placement(eng) == base
+    assert live.trace.total == zero.trace.total > 0
+    assert eng.pages.dedup_state()["probes"] > 0
+    assert _placement(_drive(ref_slots, cls, kv, DEDUP_SPEC, None,
+                             dedup=True)) == base
+
+
+@pytest.mark.parametrize("kv", DEDUP_KVS)
+def test_age_out_stream_equals_the_reference(kv):
+    """Shared pages whose references are gone are evicted by new shared
+    content and age out: the stream with its ``EV_AGE_OUT`` events equals
+    the reference's."""
+    from repro.serving.engine import make_kv_backend as ref_backend
+    from repro_torch.serving.engine import make_kv_backend
+
+    traces = []
+    for make, ob, kw in ((make_kv_backend, Observability(), {"device":
+                                                             "cpu"}),
+                         (ref_backend, ref_obs.Observability(), {})):
+        c = make(kv, hbm_pages=9, page_size=2, prefetch_budget=0, tenants=2,
+                 dedup=True, **kw)
+        c.obs = ob
+        prompt = list(range(10))
+        c.register_request(0, prompt + [100, 101], tenant=0)
+        c.register_request(1, prompt + [200, 201], tenant=1)
+        c.touch_batch([(1, j) for j in range(5)])
+        c.release_request(0)
+        c.release_request(1)
+        fresh = [p + 500 for p in prompt]
+        c.register_request(2, fresh + [300, 301], tenant=0)
+        c.register_request(3, fresh + [400, 401], tenant=1)
+        c.touch_batch([(3, j) for j in range(5)])
+        c.register_request(4, prompt + [999], tenant=0)
+        traces.append(ob.trace)
+    assert EV_AGE_OUT in {e.kind for e in traces[0].events()}
+    assert trace_diff(traces[0], traces[1]) is None
 
 
 # --------------------------------------------------------------------------- #
