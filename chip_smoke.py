@@ -8,7 +8,8 @@ It puts ``<root>/src`` on ``sys.path`` itself, builds the port's eight
 CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process
 per source, started together), and drives the port's serving path
 (with its elastic cache, its MoE expert tier, its observability layer,
-its multi-tenant QoS tier and its cross-tenant dedup), its wide (multi-limb) path and its Table-1 trace engine on the
+its multi-tenant QoS tier and its cross-tenant dedup), its transformer
+models, its wide (multi-limb) path and its Table-1 trace engine on the
 card in phases, each printing one JSON line with its seconds (the sharded
 and elastic runs also report where their wall time went,
 ``sharded_time_split``):
@@ -76,7 +77,35 @@ and elastic runs also report where their wall time went,
                  ``VectorizedExpertCache(discover="kernel")``, equal to
                  the incremental run on counters and prefetch log, its
                  flat mask and factorization held against their plain
-                 versions;
+                 versions; and the real-router block (``case_moe``'s
+                 ``kimi-k2-1t-a32b`` smoke model, 4 requests) on the card
+                 and on the host's CPU on the same parameters: every
+                 router choice (a differing one fails with the k-th
+                 probability gap of both sides), ``PageStats``,
+                 ``ExpertCacheStats`` and the prefetch log equal, no
+                 false-positive prefetch (Theorem 1), no registry scan;
+  model_check    the model zoo at full width and two layers, float32, TF32
+                 off: ``qwen2.5-3b`` (B 2, S 64) ``train_logits``,
+                 ``prefill`` and a teacher-forced ``decode_step`` on the
+                 card within 1e-3 of the same calls on the host's CPU on
+                 the same parameters, decode within 2e-3 of train's next
+                 position; ``deepseek-v2-236b`` (one dense and one MoE
+                 layer, MLA; B 2, S 32): prefill against train within
+                 2e-3, ``decode_step_router``'s (1, 2, 6) distinct
+                 indices, the int8 latent cache within 8% after 12
+                 teacher-forced steps;
+  model_serving  the published ``qwen2.5-3b`` (36 layers, bfloat16)
+                 through ``ServingEngine(kv="sharded")``, 8 requests of
+                 the launcher's prompt recipe: every request completes,
+                 every logit finite, every ``PageStats`` counter but
+                 ``registry_scans`` equal to the ``model=None`` run's, the
+                 flat kernels held against their plain versions at every
+                 shape; parameters, peak memory, init seconds, ms per
+                 prefill step and per tick, tokens/s, the refresh's time
+                 split, bf16 against float32 logits at two layers;
+  launcher_model ``repro_torch.launch.serve --arch qwen2.5-3b`` (its smoke
+                 model): 16 requests complete, the reference launcher's
+                 keys;
   obs            the observability layer: ``SlotMachine`` and
                  ``SlotOracle`` on ``tests/test_obs.py``'s golden spec
                  with ``kv="sharded"`` and ``"elastic"``, event streams
@@ -406,6 +435,32 @@ GLOBAL_COUNTS = {
 #: time limit (the sharded run's refresh is host Python that grows with
 #: the registry: 30.1 s at 4000 requests on the H100)
 BATCHING_FULL_REQUESTS = 2000
+#: ``model_check``'s cuts: float32, full width, two layers each (qwen2.5-3b
+#: dense GQA: 0.78 B parameters, 3.1 GB; deepseek-v2-236b MLA with one
+#: dense and one MoE layer: 5.36 B, 21.4 GB), batch and sequence, and the
+#: int8 latent cache's teacher-forced steps (``tests/test_perf_variants.py``)
+MODEL_CHECK = {
+    "qwen2.5-3b": dict(n_layers=2, batch=2, seq=64),
+    "deepseek-v2-236b": dict(n_layers=2, batch=2, seq=32, int8_steps=12),
+}
+#: ``model_check``'s tolerances: card against the host's CPU on the same
+#: float32 parameters, and decode / prefill against the train forward
+#: (``tests/test_models.py``'s bound); the int8 cache's relative bound
+#: (``tests/test_perf_variants.py``)
+MODEL_TOL = 1e-3
+MODEL_TRAIN_TOL = 2e-3
+INT8_REL_BOUND = 0.08
+#: ``model_serving``: the published qwen2.5-3b (36 layers, bfloat16)
+#: through ``ServingEngine(kv="sharded")``, the launcher's prompt recipe
+#: (seed 0, a shared prefix, then 4-11 tokens each)
+MODEL_SERVING = dict(arch="qwen2.5-3b", requests=8, max_new=8, max_batch=4,
+                     max_seq=192, shared_prefix=32)
+#: the keys of the reference launcher's output with a model (``front_end
+#: == "engine"``), which ``launcher_model`` must print
+LAUNCHER_ENGINE_KEYS = ("front_end", "kv", "completed", "decode_tokens",
+                        "tok_per_s", "mean_ttft_s", "peak_concurrency",
+                        "hbm_hit_rate", "prefetches", "prefetch_hits",
+                        "shared_prefix_pages", "registry_scans")
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
 #: ``case_scale``'s published size (``benchmarks/cases.py``)
@@ -1591,7 +1646,8 @@ def phase_moe(ctx: Context) -> dict:
     rebuilt through the flat mask and factorization on the card at every
     registry change: its counters and prefetch log equal the
     ``discover="incremental"`` run's, and each kernel is held against its
-    plain version at every shape it launched at."""
+    plain version at every shape it launched at; and the real-router
+    block (``real_router_check``)."""
     from repro_torch.cases import (bench_payload, case_moe, moe_run,
                                    moe_schedule)
     from repro_torch.serving.expert_cache_vec import VectorizedExpertCache
@@ -1624,6 +1680,7 @@ def phase_moe(ctx: Context) -> dict:
     walls = {k: v["wall_s"] for k, v in full.items() if isinstance(v, dict)
              and "wall_s" in v}
     return {"matches": ["BENCH_case_moe.json", "MOE_FULL"],
+            "real_router": real_router_check(),
             "full": {k: v for k, v in full.items() if k in MOE_FULL},
             "wall_s": walls, "kernel_discover": {
                 "wall_s": kernel["wall_s"],
@@ -1633,6 +1690,461 @@ def phase_moe(ctx: Context) -> dict:
                 "prefetches_logged": len(kernel["prefetch_log"]),
                 "launches": launches,
                 "device_ms": {r["name"]: r.get("device_ms") for r in rows}}}
+
+
+class RouterLog:
+    """Records every ``apply_moe`` call of a run: the router's top-k
+    indices and, per token, the gap between the k-th and the (k+1)-th
+    largest router probability (how near the choice was to a tie)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.calls = []
+        self._mod, self._orig = moe, moe.apply_moe
+
+        def recording(x, p, cfg):
+            out, aux = self._orig(x, p, cfg)
+            k = cfg.moe.top_k
+            probs = torch.softmax(torch.einsum(
+                "td,de->te", x.reshape(-1, x.shape[-1]).float(),
+                p["router"]), dim=-1)
+            vals = torch.sort(probs, dim=-1, descending=True,
+                              stable=True).values
+            self.calls.append((aux["router_top_idx"].cpu(),
+                               (vals[:, k - 1] - vals[:, k]).cpu()))
+            return out, aux
+
+        moe.apply_moe = recording
+
+    def close(self):
+        self._mod.apply_moe = self._orig
+
+
+def params_copy(params, device):
+    """A copy of a model's parameters on ``device``."""
+    import copy
+
+    return copy.deepcopy(params).to(device)
+
+
+def router_failures(card: list, host: list) -> list:
+    """The calls where the card's router chose other experts than the
+    host's, each with both sides' gap at the k-th entry of the first
+    token that differs (no tie is hidden: a differing choice fails)."""
+    if len(card) != len(host):
+        return [f"{len(card)} router calls on the card, {len(host)} on "
+                f"the host"]
+    bad = []
+    for n, ((ic, gc), (ih, gh)) in enumerate(zip(card, host)):
+        rows = (ic != ih).any(dim=-1).nonzero().flatten().tolist()
+        if rows:
+            r = rows[0]
+            bad.append(f"call {n} token {r}: card {ic[r].tolist()} host "
+                       f"{ih[r].tolist()}, k-th gap card {float(gc[r])!r} "
+                       f"host {float(gh[r])!r}")
+    return bad
+
+
+def real_router_check() -> dict:
+    """``case_moe``'s real-router block: the ``kimi-k2-1t-a32b`` smoke
+    model (4 requests, ``max_batch=2``) on the card and on the host's CPU
+    on the same parameters (initialized once on the card and copied):
+    every router choice, ``PageStats``, ``ExpertCacheStats`` and the
+    prefetch log equal; Theorem 1 (no false-positive prefetch) and no
+    registry scan."""
+    import dataclasses
+
+    from repro_torch.cases import (MOE_REAL_ROUTER_ARCH,
+                                   moe_real_router_engine,
+                                   real_router_report)
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(MOE_REAL_ROUTER_ARCH)
+    card = build_model(cfg, device=DEVICE)
+    params = card.init_params(0)
+    runs = {}
+    for side, model, p, dev in (
+            ("card", card, params, DEVICE),
+            ("host", build_model(cfg, device="cpu"),
+             params_copy(params, "cpu"), "cpu")):
+        log = RouterLog()
+        try:
+            t0 = time.perf_counter()
+            eng = moe_real_router_engine(model, p, dev)
+            wall = time.perf_counter() - t0
+        finally:
+            log.close()
+        runs[side] = (eng, log.calls, wall)
+    (eng, calls, wall), (h_eng, h_calls, h_wall) = runs["card"], runs["host"]
+    bad = router_failures(calls, h_calls)
+    for name, a, b in (
+            ("PageStats", dataclasses.asdict(eng.pages.stats),
+             dataclasses.asdict(h_eng.pages.stats)),
+            ("ExpertCacheStats", dataclasses.asdict(eng.experts.stats),
+             dataclasses.asdict(h_eng.experts.stats)),
+            ("prefetch_log", eng.experts.prefetch_log,
+             h_eng.experts.prefetch_log)):
+        if a != b:
+            bad.append(f"{name}: card {a} host {b}")
+    rep = real_router_report(cfg, eng)
+    if rep["false_positive_prefetches"]:
+        bad.append("Theorem 1 violated on live router traffic")
+    if eng.experts.stats.registry_scans:
+        bad.append("the real-router run scanned the registry")
+    if bad:
+        raise AssertionError("real router: " + "; ".join(bad))
+    return {**rep, "router_calls": len(calls),
+            "min_kth_gap": min(float(g.min()) for _, g in calls),
+            "prefetches_logged": len(eng.experts.prefetch_log),
+            "expert_stats": dataclasses.asdict(eng.experts.stats),
+            "wall_s": wall, "host_wall_s": h_wall}
+
+
+# --------------------------------------------------------------------------- #
+# the model zoo                                                               #
+# --------------------------------------------------------------------------- #
+
+def model_config(arch: str, **cut):
+    """The published configuration of ``arch`` with ``cut`` applied (the
+    CPU rehearsals replace this with small configurations)."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(**cut)
+
+
+def free_card() -> None:
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def rel_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    """max |x - y| / max |y|."""
+    x, y = x.float().cpu(), y.float().cpu()
+    return float((x - y).abs().max() / y.abs().max().clamp(min=1e-9))
+
+
+def all_close(label: str, card: torch.Tensor, host: torch.Tensor,
+              tol: float) -> float:
+    """Raises unless ``card`` is within ``rtol = atol = tol`` of ``host``;
+    returns the largest absolute difference."""
+    card, host = card.float().cpu(), host.float().cpu()
+    err = float((card - host).abs().max())
+    if not torch.allclose(card, host, rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: max abs err {err} over rtol = atol "
+                             f"= {tol}")
+    return err
+
+
+def grown_cache(model, cache: dict, batch: int, max_len: int) -> dict:
+    """A prefill's cache copied into a decode cache of ``max_len`` rows."""
+    big = model.init_cache(batch, max_len)
+    for key, value in cache.items():
+        if key == "len":
+            big["len"] = value.clone()
+        else:
+            big[key][:, :, :value.shape[2]] = value
+    return big
+
+
+def qwen_check() -> dict:
+    """qwen2.5-3b at full width, two layers, float32: ``train_logits``,
+    ``prefill`` (logits and cache) and a teacher-forced ``decode_step``
+    on the card against the same calls on the host's CPU on the same
+    parameters (``MODEL_TOL``), and decode against the train forward's
+    next position (``MODEL_TRAIN_TOL``)."""
+    from repro_torch.models import build_model
+
+    c = MODEL_CHECK["qwen2.5-3b"]
+    cfg = model_config("qwen2.5-3b", n_layers=c["n_layers"],
+                       dtype="float32")
+    b, s = c["batch"], c["seq"]
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=DEVICE)
+    params = card.init_params(0)
+    host = build_model(cfg, device="cpu")
+    h_params = params_copy(params, "cpu")
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s)))
+    out, times = {}, {}
+    for side, model, p in (("card", card, params), ("host", host, h_params)):
+        dev = model.device
+        t0 = time.perf_counter()
+        full = model.train_logits(p, {"tokens": toks.to(dev)})[0]
+        last, cache = model.prefill(p, {"tokens": toks[:, :-1].to(dev)})
+        cache = grown_cache(model, cache, b, s)
+        step, _ = model.decode_step(p, {"tokens": toks[:, -1:].to(dev)},
+                                    cache)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times[side] = time.perf_counter() - t0
+        out[side] = (full, last, cache, step)
+    (full, last, cache, step), (h_full, h_last, h_cache, h_step) = (
+        out["card"], out["host"])
+    errs = {"train_logits": all_close("train_logits", full, h_full,
+                                      MODEL_TOL),
+            "prefill_logits": all_close("prefill", last, h_last, MODEL_TOL),
+            "decode_logits": all_close("decode_step", step, h_step,
+                                       MODEL_TOL)}
+    for key in ("k", "v"):
+        errs[f"cache_{key}"] = all_close(f"cache {key}", cache[key],
+                                         h_cache[key], MODEL_TOL)
+    errs["decode_vs_train"] = all_close("decode vs train", step[:, 0],
+                                        full[:, -1], MODEL_TRAIN_TOL)
+    n = sum(p.numel() for p in params.parameters())
+    del card, params, host, h_params, out, full, cache, step
+    free_card()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads],
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                       "batch": b, "seq": s},
+            "params": n, "weight_gb": n * 4 / 1e9, "max_abs_err": errs,
+            "init_s": init_s, "card_s": times["card"],
+            "host_s": times["host"]}
+
+
+def deepseek_check() -> dict:
+    """deepseek-v2-236b at full width, two layers (one dense, one MoE:
+    160 experts, top-6, 2 shared; MLA 512 / 1536), float32, on the card:
+    ``prefill``'s last logits against ``train_logits``' last position
+    (``MODEL_TRAIN_TOL``), ``decode_step_router``'s indices
+    ``(1, B, 6)``, distinct per token and in range, and the int8 latent
+    cache after teacher-forced steps within ``INT8_REL_BOUND`` of the
+    float cache's logits."""
+    from repro_torch.models import build_model
+
+    c = MODEL_CHECK["deepseek-v2-236b"]
+    cfg = model_config("deepseek-v2-236b", n_layers=c["n_layers"],
+                       dtype="float32")
+    b, s, steps = c["batch"], c["seq"], c["int8_steps"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+        model.device)
+    t0 = time.perf_counter()
+    full = model.train_logits(params, {"tokens": toks})[0]
+    last, cache = model.prefill(params, {"tokens": toks})
+    err = all_close("prefill vs train", last, full[:, -1], MODEL_TRAIN_TOL)
+    cache = grown_cache(model, cache, b, s + 1)
+    _, _, router = model.decode_step_router(
+        params, {"tokens": toks[:, -1:]}, cache)
+    k, e = cfg.moe.top_k, cfg.moe.n_experts
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    r = router.cpu()
+    if (tuple(r.shape) != (n_moe, b, k) or r.dtype != torch.int32
+            or int(r.min()) < 0 or int(r.max()) >= e
+            or any(len(set(row)) != k for row in r.reshape(-1, k).tolist())):
+        raise AssertionError(f"decode_step_router: {r.dtype} {r.tolist()}")
+    m8 = build_model(cfg.replace(kv_cache_dtype="int8"), device=DEVICE)
+    ca, cb = model.init_cache(b, steps + 4), m8.init_cache(b, steps + 4)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, steps))).to(
+        model.device)
+    for t in range(steps):
+        la, ca = model.decode_step(params, {"tokens": seq[:, t:t + 1]}, ca)
+        lb, cb = m8.decode_step(params, {"tokens": seq[:, t:t + 1]}, cb)
+    rel = rel_err(lb, la)
+    if not rel < INT8_REL_BOUND:
+        raise AssertionError(f"int8 latent cache: relative error {rel}")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    del model, m8, params, full, cache, ca, cb
+    free_card()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "experts": e, "top_k": k,
+                       "shared": cfg.moe.n_shared_experts,
+                       "mla": [cfg.mla.kv_lora_rank, cfg.mla.q_lora_rank],
+                       "batch": b, "seq": s},
+            "params": n, "weight_gb": n * 4 / 1e9,
+            "prefill_vs_train_max_abs_err": err, "router": r.tolist(),
+            "int8_steps": steps, "int8_rel_err": rel, "init_s": init_s,
+            "run_s": run_s}
+
+
+def phase_model_check(ctx: Context) -> dict:
+    """The model zoo at full width and cut depth in float32, TF32 off:
+    ``qwen_check`` (card against the host's CPU) and ``deepseek_check``
+    (MLA, MoE routing, the int8 latent cache); each model freed before
+    the next."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 matmuls are on: float32 checks need "
+                             "them off")
+    return {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "qwen2.5-3b": qwen_check(),
+            "deepseek-v2-236b": deepseek_check()}
+
+
+def launcher_prompts(vocab: int, n: int, shared_prefix: int) -> list:
+    """``launch/serve.py``'s prompts: seed 0, a shared prefix, then 4-11
+    tokens each."""
+    rng = np.random.default_rng(0)
+    shared = list(rng.integers(0, vocab, size=shared_prefix))
+    return [[int(t) for t in shared + list(rng.integers(
+        0, vocab, size=int(rng.integers(4, 12))))] for _ in range(n)]
+
+
+class DecodeTimes:
+    """Wall seconds of each decode step of a model engine, split into the
+    single-slot prefill steps (``_step_slot``) and the engine ticks, each
+    waited for; and whether every logit of every step was finite."""
+
+    def __init__(self, eng):
+        self.prefill, self.tick = [], []
+        self.finite = True
+        self._in_prefill = False
+        decode, step_slot = eng._decode, eng._step_slot
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = decode(*args)
+            self.finite &= bool(torch.isfinite(out[0]).all())
+            (self.prefill if self._in_prefill else self.tick).append(
+                time.perf_counter() - t0)
+            return out
+
+        def slot(*args):
+            self._in_prefill = True
+            try:
+                return step_slot(*args)
+            finally:
+                self._in_prefill = False
+
+        eng._decode, eng._step_slot = timed, slot
+
+    def summary(self) -> dict:
+        def ms(xs):
+            return {"steps": len(xs),
+                    "mean_ms": 1e3 * float(np.mean(xs)) if xs else None,
+                    "median_ms": 1e3 * float(np.median(xs)) if xs else None}
+        return {"prefill_steps": ms(self.prefill),
+                "decode_ticks": ms(self.tick)}
+
+
+def bf16_logit_error(cfg, n_layers: int = 2) -> float:
+    """The bfloat16 model's logits against a float32 copy of the same
+    weights, at ``n_layers`` layers: max |bf16 - f32| / max |f32| of a
+    (2, 64) train forward (reported, not bounded)."""
+    from repro_torch.models import build_model
+
+    cut = cfg.replace(n_layers=n_layers)
+    m16 = build_model(cut, device=DEVICE)
+    p16 = m16.init_params(0)
+    m32 = build_model(cut.replace(dtype="float32"), device=DEVICE)
+    p32 = params_copy(p16, DEVICE).float()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64))).to(m16.device)
+    rel = rel_err(m16.train_logits(p16, {"tokens": toks})[0],
+                  m32.train_logits(p32, {"tokens": toks})[0])
+    del m16, p16, m32, p32
+    free_card()
+    return rel
+
+
+def phase_model_serving(ctx: Context) -> dict:
+    """The published qwen2.5-3b (36 layers, bfloat16, untied) served
+    through ``ServingEngine(kv="sharded")``: every request completes with
+    finite logits, every ``PageStats`` counter but ``registry_scans``
+    equals the ``model=None``, ``kv="vec"`` run of the same prompts, and
+    each flat kernel the sharded refreshes launched is held against its
+    plain version at every shape.  Reports the parameters, the card's
+    peak memory, init seconds, decode ms (prefill steps and ticks apart),
+    tokens/s, the refresh's time split and the bfloat16 logits' error
+    against float32 at two layers."""
+    import dataclasses
+
+    from repro_torch.models import build_model, count_params_analytic
+    from repro_torch.serving.engine import ServingEngine
+
+    c = MODEL_SERVING
+    cfg = model_config(c["arch"])
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE)
+    params = model.init_params(0)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    prompts = launcher_prompts(cfg.vocab_size, c["requests"],
+                               c["shared_prefix"])
+    kw = dict(max_batch=c["max_batch"], max_seq=c["max_seq"], device=DEVICE)
+    eng = ServingEngine(model, params, kv="sharded", **kw)
+    times = DecodeTimes(eng)
+
+    def serve(engine):
+        for prompt in prompts:
+            engine.submit(prompt, max_new_tokens=c["max_new"])
+        t0 = time.perf_counter()
+        done = engine.run_until_idle()
+        return done, time.perf_counter() - t0
+
+    (done, wall), launches, cap, seconds = traced(serve, eng)
+    if (len(done) != c["requests"]
+            or any(len(r.generated) != c["max_new"] for r in done)):
+        raise AssertionError(f"model serving: {len(done)} of "
+                             f"{c['requests']} requests completed")
+    if not times.finite:
+        raise AssertionError("model serving: a logit was not finite")
+    null = ServingEngine(None, None, kv="vec", **kw)
+    serve(null)
+    stats = dataclasses.asdict(eng.pages.stats)
+    stub = dataclasses.asdict(null.pages.stats)
+    stats.pop("registry_scans"), stub.pop("registry_scans")
+    if stats != stub:
+        raise AssertionError(f"model serving's page counters {stats} != "
+                             f"the model=None run's {stub}")
+    launched = [k for k in FLAT if launches.get(k)]
+    if "divisibility_mask" not in launched:
+        raise AssertionError(f"model serving: the sharded refresh launched "
+                             f"no mask: {launches}")
+    rows = check_path("model_serving", launches, cap.inputs, timed=False,
+                      required=launched, shape_launches=cap.launches)
+    peak = (torch.cuda.max_memory_allocated() if torch.cuda.is_available()
+            else None)
+    tokens = sum(len(r.generated) for r in done)
+    del eng, model, params, null
+    free_card()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "params": n, "params_analytic": count_params_analytic(cfg),
+            "weight_gb": weight_bytes / 1e9,
+            "max_memory_allocated_gb": None if peak is None else peak / 1e9,
+            "init_s": init_s, "requests": len(done), "tokens": tokens,
+            "wall_s": wall, "tok_per_s": tokens / wall,
+            **times.summary(), "page_stats": stats,
+            "launches": launches,
+            "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
+            "sharded_time_split": time_split(wall, seconds, launches, rows),
+            "bf16_vs_f32_rel_err_2_layers": bf16_logit_error(cfg)}
+
+
+def phase_launcher_model(ctx: Context) -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen2.5-3b``: the
+    reference launcher's defaults with its smoke model, on the card (the
+    default device, named; called in this process, as the other launcher
+    phases are): every request completes, and it prints the reference
+    launcher's keys."""
+    from repro_torch.launch import serve
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve.main(["--arch", "qwen2.5-3b", "--device", DEVICE])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    missing = [k for k in LAUNCHER_ENGINE_KEYS if k not in out]
+    if missing or out["completed"] != 16 or out["front_end"] != "engine":
+        raise AssertionError(f"launcher with a model: {out}")
+    return out
 
 
 #: ``tests/test_obs.py``'s golden arrival spec (seed 5, 10 requests at
@@ -2891,6 +3403,9 @@ PHASES = [
     ("launcher", phase_launcher),
     ("elastic", phase_elastic),
     ("moe", phase_moe),
+    ("model_check", phase_model_check),
+    ("model_serving", phase_model_serving),
+    ("launcher_model", phase_launcher_model),
     ("obs", phase_obs),
     ("tenancy", phase_tenancy),
     ("dedup", phase_dedup),

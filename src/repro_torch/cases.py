@@ -16,8 +16,9 @@ the runner writes them:
   ``SlotMachine`` / ``SlotOracle``, continuous against lockstep and LRU.
 * :func:`case_elastic` — a resize storm and shard kills under load,
   against the uninterrupted scalar oracle.
-* :func:`case_moe` — the MoE expert tier over a router schedule, and the
-  engine's synthetic-router load generator.
+* :func:`case_moe` — the MoE expert tier over a router schedule, the
+  engine's synthetic-router load generator and, at full size, a MoE
+  smoke model's real router feeding the engine's expert tier.
 * :func:`case_tenancy` — one engine serving a hot, cold and scanner
   tenants under weighted quotas, vec against the scalar oracle per tenant.
 * :func:`case_dedup` — shared system prompts across tenants through the
@@ -29,9 +30,10 @@ the runner writes them:
 
 Five cases are also split into the pieces ``chip_smoke.py`` drives on
 the card (``serving_run``; ``batching_trace``, ``batching_run``,
-``check_batching`` and ``batching_report``; ``moe_schedule`` and
-``moe_run``; ``tenancy_run`` and ``check_tenancy``; ``dedup_trace``,
-``dedup_run`` and ``check_dedup``).
+``check_batching`` and ``batching_report``; ``moe_schedule``,
+``moe_run``, ``moe_real_router_engine`` and ``real_router_report``;
+``tenancy_run`` and ``check_tenancy``; ``dedup_trace``, ``dedup_run`` and
+``check_dedup``).
 
 :func:`case_scale` is the million-element wide-registry case: 1M data
 elements through Algorithm 1's MEM pool, 10,000 chains 100 deep
@@ -74,7 +76,9 @@ __all__ = ["ScaleUniverse", "build_scale_universe", "verify_scale",
            "case_serving", "serving_run", "case_batching", "BATCHING_CONFIGS",
            "batching_trace", "batching_run", "check_batching",
            "batching_report", "case_elastic", "case_moe", "MoESchedule",
-           "moe_schedule", "moe_run", "case_tenancy", "tenancy_config",
+           "moe_schedule", "moe_run", "MOE_REAL_ROUTER_ARCH",
+           "moe_real_router_engine", "real_router_report", "case_tenancy",
+           "tenancy_config",
            "tenancy_run", "tenancy_protection", "check_tenancy",
            "TENANCY_TRAIL",
            "case_dedup", "DedupTrace", "dedup_trace", "dedup_run",
@@ -678,6 +682,45 @@ def moe_run(ms: MoESchedule, cache) -> Dict[str, object]:
                 prefetch_log=tuple(cache.prefetch_log))
 
 
+#: the arch whose smoke model feeds ``case_moe``'s real-router block
+MOE_REAL_ROUTER_ARCH = "kimi-k2-1t-a32b"
+
+
+def moe_real_router_engine(model, params, device="cuda", max_seq: int = 96,
+                           n_requests: int = 4, max_new: int = 4):
+    """``case_moe``'s real-router block on one model: ``ServingEngine``
+    with ``max_batch=2``, page size 8 and the vectorized expert tier (4
+    slots, prefetch budget 4), fed ``n_requests`` prompts
+    ``range(12) + [20 + i]``, run until idle.  Returns the engine; every
+    decode step's router top-k sets (live slots x MoE layers) went into
+    its expert cache."""
+    from repro_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(model, params, max_batch=2, max_seq=max_seq,
+                        page_size=8, moe="vec", moe_slots=4,
+                        moe_prefetch_budget=4, device=device)
+    for i in range(n_requests):
+        eng.submit(list(range(12)) + [20 + i], max_new_tokens=max_new)
+    eng.run_until_idle()
+    return eng
+
+
+def real_router_report(cfg, eng) -> Dict[str, object]:
+    """The reference's ``engine_real_router`` dict of a finished
+    :func:`moe_real_router_engine`: the expert tier's hit rate,
+    prefetches and precision, and the prefetches outside the
+    factorization-recovered co-fire set of their trigger (Theorem 1 says
+    none)."""
+    ec = eng.experts
+    rs = ec.stats
+    false_pos = sum(1 for src, tgt in ec.prefetch_log
+                    if tgt not in ec.coactivated(src))
+    return dict(arch=cfg.name, n_experts=cfg.moe.n_experts,
+                expert_hit_rate=rs.hit_rate, prefetches=rs.prefetches,
+                prefetch_precision=rs.prefetch_precision,
+                false_positive_prefetches=false_pos)
+
+
 def case_moe(smoke: bool = False, real_router: Optional[bool] = None,
              device="cuda") -> Dict[str, object]:
     """``benchmarks/cases.py::case_moe`` on the port: the schedule through
@@ -685,18 +728,16 @@ def case_moe(smoke: bool = False, real_router: Optional[bool] = None,
     reference's asserts (vec and scalar equal on counters and prefetch
     log, no registry scan on the vectorized path, no prefetch under
     LRU), then the engine's synthetic-router load generator
-    (``engine_loadgen``).  ``real_router`` (default: full size) needs a
-    MoE model, which is ROADMAP.md A.14 and raises."""
+    (``engine_loadgen``) and, with ``real_router`` (default: full size,
+    as in the reference), the ``kimi-k2-1t-a32b`` smoke model's router
+    feeding the expert tier (``engine_real_router``, random parameters
+    from a generator seeded 0), with the reference's Theorem-1 assert."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.expert_cache import ExpertCache
     from repro_torch.serving.expert_cache_vec import VectorizedExpertCache
 
     if real_router is None:
         real_router = not smoke
-    if real_router:
-        raise NotImplementedError("case_moe's real-router block needs a MoE "
-                                  "model, not ported yet (ROADMAP.md A.14); "
-                                  "pass real_router=False")
     dev = resolve_device(device)
     ms = moe_schedule(smoke)
     budget = ms.topk - 1
@@ -743,6 +784,17 @@ def case_moe(smoke: bool = False, real_router: Optional[bool] = None,
         expert_hit_rate=es.hit_rate, expert_misses=es.misses,
         prefetch_precision=es.prefetch_precision,
         registry_scans=es.registry_scans)
+    if real_router:
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import build_model
+
+        cfg = get_smoke(MOE_REAL_ROUTER_ARCH)
+        model = build_model(cfg, device=dev)
+        reng = moe_real_router_engine(model, model.init_params(0), dev)
+        res["engine_real_router"] = real_router_report(cfg, reng)
+        if res["engine_real_router"]["false_positive_prefetches"]:
+            raise AssertionError("Theorem 1 violated on live router "
+                                 "traffic")
     out = {k: {kk: vv for kk, vv in r.items()
                if kk not in ("parity", "prefetch_log")}
            for k, r in res.items()}
@@ -1319,7 +1371,7 @@ DEFAULT_OUT = "bench_torch"
 
 def run_case(case: str, full: bool, device="cuda") -> Dict[str, object]:
     """One case at its smoke size (``full``: the published one, with
-    ``case_moe``'s real-router block off, ROADMAP.md A.14)."""
+    ``case_moe``'s real-router block on, as the reference runs it)."""
     smoke = not full
     if case == "serving":
         return case_serving(smoke=smoke, device=device)
@@ -1328,7 +1380,7 @@ def run_case(case: str, full: bool, device="cuda") -> Dict[str, object]:
     if case == "elastic":
         return case_elastic(smoke=smoke, device=device)
     if case == "moe":
-        return case_moe(smoke=smoke, real_router=False, device=device)
+        return case_moe(smoke=smoke, device=device)
     if case == "tenancy":
         return case_tenancy(smoke=smoke, device=device)
     if case == "dedup":

@@ -1,19 +1,26 @@
 """Serving launcher: runs the batched-request engines (port of
-``repro.launch.serve``, ``--null-model`` only).
+``repro.launch.serve``).
 
 Default front-end is the continuous-batching :class:`~repro_torch.
 serving.slots.SlotMachine`: open-loop Poisson arrivals, chunked prefill,
 async admission, preemption/resume.  ``--front-end engine`` selects the
-closed-queue ``ServingEngine`` loop instead.  Both share the PFCS paged
-KV cache backends (``--kv vec`` array-state tables by default, ``scalar``
-for the oracle, ``sharded`` for the prime-space partitioned cache whose
-registry refreshes run the CUDA discovery kernels on ``--device``, and
-``elastic``, the sharded cache with live resize and shard-loss
-recovery).  ``--trace PATH`` records the observability layer (event
-ring, telemetry and the kernel ledger) and writes its export, the input
-of ``tools/trace_view.py``.
+closed-queue ``ServingEngine`` loop instead; a real model (``--arch``
+without ``--null-model``: the arch's smoke configuration, random
+parameters from a generator seeded 0) always runs through
+``ServingEngine``, because the slot machine is a page-management load
+generator (stub decode only).
+
+Both front-ends share the PFCS paged KV cache backends (``--kv vec``
+array-state tables by default, ``scalar`` for the oracle, ``sharded``
+for the prime-space partitioned cache whose registry refreshes run the
+CUDA discovery kernels on ``--device``, and ``elastic``, the sharded
+cache with live resize and shard-loss recovery).  ``--trace PATH``
+records the observability layer (event ring, telemetry and the kernel
+ledger) and writes its export, the input of ``tools/trace_view.py``.
 
 Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --requests 16 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --null-model \
         --kv sharded --max-batch 128 --requests 256
 """
@@ -29,6 +36,8 @@ import numpy as np
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -54,21 +63,18 @@ def main(argv=None):
                          "per tick")
     ap.add_argument("--null-model", action="store_true",
                     help="no device decode: pure page-management load "
-                         "generation (the only mode ported so far)")
+                         "generation (scales to hundreds of slots)")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="record the observability layer (event ring + "
                          "telemetry + kernel ledger) and write the export "
                          "JSON here; feed it to tools/trace_view.py for a "
                          "Chrome trace")
     ap.add_argument("--device", default="cuda",
-                    help="where the discovery kernels run: 'cuda' (the "
-                         "default) or 'cpu' for their plain versions")
+                    help="where the model and the discovery kernels run: "
+                         "'cuda' (the default) or 'cpu' for the plain "
+                         "versions")
     args = ap.parse_args(argv)
 
-    if not args.null_model:
-        raise NotImplementedError("serving a model is not ported yet "
-                                  "(ROADMAP.md A.14); pass --null-model")
-    vocab = 32_000
     obs = None
     if args.trace:
         from repro_torch.obs import Observability, profile
@@ -77,13 +83,28 @@ def main(argv=None):
         profile.reset()
         profile.enable(True)
 
+    if args.null_model:
+        model, params, vocab = None, None, 32_000
+    else:
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import build_model
+
+        cfg = get_smoke(args.arch)
+        model = build_model(cfg, device=args.device)
+        params = model.init_params(0)
+        vocab = cfg.vocab_size
+
+    # the slot machine decodes stub tokens only — a real model needs the
+    # ServingEngine's device decode step
+    front_end = args.front_end if model is None else "engine"
+
     rng = np.random.default_rng(0)
     shared = list(rng.integers(0, vocab, size=args.shared_prefix))
     prompts = [shared + list(rng.integers(0, vocab,
                                           size=int(rng.integers(4, 12))))
                for _ in range(args.requests)]
 
-    if args.front_end == "slots":
+    if front_end == "slots":
         from repro_torch.serving.slots import (SlotMachine,
                                                poisson_arrival_ticks)
 
@@ -121,7 +142,7 @@ def main(argv=None):
     else:
         from repro_torch.serving.engine import ServingEngine
 
-        engine = ServingEngine(None, None, max_batch=args.max_batch,
+        engine = ServingEngine(model, params, max_batch=args.max_batch,
                                max_seq=args.max_seq, kv=args.kv,
                                max_bits=args.max_bits, obs=obs,
                                device=args.device)

@@ -30,9 +30,13 @@ Two expert-cache backends for MoE workloads (``moe=``, default off):
 ``"vec"`` (:class:`~repro_torch.serving.expert_cache_vec.
 VectorizedExpertCache`, array residency + table-driven co-fire discovery)
 and ``"scalar"`` (the oracle :class:`~repro_torch.serving.expert_cache.
-ExpertCache`).  With ``model=None`` the router is a deterministic
-synthetic schedule (:func:`synthetic_router_groups`), the load-generator
-mode ``repro_torch.cases.case_moe`` drives.
+ExpertCache`).  Router feeds are dual-mode: with ``model=None`` the
+router is a deterministic synthetic schedule
+(:func:`synthetic_router_groups`), the load-generator mode
+``repro_torch.cases.case_moe`` drives; with a MoE model from
+:mod:`repro_torch.models`, each decode step's real top-k sets flow from
+``apply_moe``'s router into the expert cache
+(``Model.decode_step_router``).
 
 ``tenants=`` (an int or a :class:`~repro_torch.tenancy.TenantQoSConfig`)
 selects the tenant-namespaced variant of every backend (per-tenant HBM
@@ -41,10 +45,15 @@ quotas, prefetch budgets and stats; requests carry a tenant id), and
 (:mod:`repro_torch.serving.dedup`), whose admissions are probed through
 the batched gcd on ``device``.
 
-The engine runs with ``model=None``: a pure page-management load
-generator with deterministic stub tokens, the mode the serving benchmark
-drives.  Model decode is still to port (ROADMAP.md A.14) and raises
-``NotImplementedError``.
+On-device compute is the model's ``decode_step`` (a model of
+:func:`repro_torch.models.build_model`, its parameters on the engine's
+``device``): each admitted prompt is prefilled one token at a time
+through decode steps of its slot, and each tick decodes one greedy token
+for every live slot.  Pass ``model=None`` to run the engine as a pure
+page-management load generator (deterministic stub tokens) — the mode
+the serving benchmark drives to 100+ concurrent requests per step.
+Paging never reads the tokens, so both modes give the same page counters
+on the same prompts.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .elastic import ElasticShardedPagedKVCache
 from .expert_cache import ExpertCache
@@ -67,17 +77,6 @@ __all__ = ["Request", "ServingEngine", "make_kv_backend",
 
 #: stub-decode vocabulary (model=None load-generator mode)
 _STUB_VOCAB = 32_000
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
-def check_not_ported(*, model=None) -> None:
-    """Raise ``NotImplementedError`` for a feature of ``repro``'s engines
-    that the port does not have yet."""
-    if model is not None:
-        raise _not_ported("serving a model (model is not None)", "A.14")
 
 
 def make_kv_backend(kv: str, *, hbm_pages: int, page_size: int,
@@ -202,7 +201,6 @@ class ServingEngine:
                  moe_prefetch_budget: int = 4, moe_groups: int = 16,
                  moe_seed: int = 0, tenants=None, max_bits: int = 62,
                  dedup: bool = False, obs=None, device="cuda"):
-        check_not_ported(model=model)
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -218,19 +216,38 @@ class ServingEngine:
             prefetch_budget=prefetch_budget, shards=shards, mesh=mesh,
             tenants=tenants, max_bits=max_bits, dedup=dedup, device=device)
         self.device = self.pages.device
-        # MoE expert-weight tier; the router feed is a deterministic
-        # synthetic schedule (load-generator mode)
+        # MoE expert-weight tier; the router feed is the real model
+        # router when the model is a MoE arch, a deterministic synthetic
+        # schedule in load-generator mode
+        model_moe = getattr(getattr(model, "cfg", None), "moe", None)
+        if model_moe is not None:
+            moe_experts, moe_topk = model_moe.n_experts, model_moe.top_k
         self.experts: Optional[ExpertCache] = make_expert_backend(
             moe, moe_experts=moe_experts, moe_slots=moe_slots,
             moe_prefetch_budget=moe_prefetch_budget, tenants=tenants,
             device=device)
+        if (self.experts is not None and model is not None
+                and getattr(model, "decode_step_router", None) is None):
+            raise ValueError(
+                "moe= needs router output: pass a MoE model (one with "
+                "decode_step_router) or model=None for the synthetic-"
+                "router load-generator mode")
         # synthetic router: drawn deterministically per (request,
         # position) — identical across cache backends AND engines
         self._moe_groups = (synthetic_router_groups(
             moe_experts, moe_topk, moe_groups, moe_seed)
-            if self.experts is not None else None)
+            if self.experts is not None and model is None else None)
         self.queue: List[Request] = []
         self.slots: List[Optional[Request]] = [None] * max_batch
+        self._router_decode = self.experts is not None and model is not None
+        if model is not None:
+            self.cache = model.init_cache(max_batch, max_seq,
+                                          device=self.device)
+            self._decode = (model.decode_step_router if self._router_decode
+                            else model.decode_step)
+        else:                       # page-management load-generator mode
+            self.cache = None
+            self._decode = None
         self._next_id = 0
         self.steps = 0
         self.peak_live = 0          # max concurrent requests in one step
@@ -293,7 +310,8 @@ class ServingEngine:
         return rid
 
     def _admit(self) -> None:
-        """Fill free slots from the queue; register their prompts."""
+        """Fill free slots from the queue; register and prefill their
+        prompts."""
         for i, slot in enumerate(self.slots):
             if slot is not None or not self.queue:
                 continue
@@ -305,6 +323,35 @@ class ServingEngine:
                                             tenant=req.tenant)
             else:
                 self.pages.register_request(req.req_id, req.prompt)
+            if self.model is None:
+                continue            # stub mode: no device KV to prefill
+            # prefill this slot: feed prompt tokens through decode steps
+            # (single-slot prefill keeps the engine simple)
+            for tok in req.prompt:
+                self._step_slot(i, tok)
+
+    def _tokens(self, values: Dict[int, int]) -> torch.Tensor:
+        """The decode batch's (B, 1) token column: ``values[slot]`` for
+        the slots given, 0 elsewhere."""
+        toks = np.zeros((self.max_batch, 1), np.int64)
+        for i, tok in values.items():
+            toks[i, 0] = tok
+        return torch.from_numpy(toks).to(self.device)
+
+    def _step_slot(self, i: int, token: int) -> int:
+        """Advance slot i by one token; returns the argmax next token."""
+        out = self._decode(self.params, {"tokens": self._tokens({i: token})},
+                           self.cache)
+        # router-decode models return a third router output; prefill
+        # routing is not observed (the same simplification as the
+        # single-slot prefill itself)
+        logits, self.cache = out[0], out[1]
+        # only slot i's cache_len must advance: every other slot's goes
+        # back by one
+        ln = self.cache["len"] - 1
+        ln[i] += 1
+        self.cache = dict(self.cache, len=ln)
+        return int(torch.argmax(logits[i, -1]))
 
     def _stub_token(self, req: Request) -> int:
         """Deterministic pseudo-decode for model=None mode (independent
@@ -341,13 +388,34 @@ class ServingEngine:
                    for j in range(max(0, n - self.reread_window), n)]
         if touches:
             self.pages.touch_batch(touches)
-        nxt_of = {i: self._stub_token(r) for i, r in live}
+
+        router = None
+        if self.model is not None:
+            toks = self._tokens({
+                i: (req.generated[-1] if req.generated else
+                    (req.prompt[-1] if req.prompt else 0))
+                for i, req in live})
+            out = self._decode(self.params, {"tokens": toks}, self.cache)
+            logits, self.cache = out[0], out[1]
+            if self._router_decode:
+                router = out[2].cpu().numpy()     # (n_moe_layers, B, K)
+            # greedy: torch.argmax takes the first index on ties, as
+            # np.argmax does
+            nxt = torch.argmax(logits[:, -1], dim=-1).tolist()
+            nxt_of = {i: int(nxt[i]) for i, _ in live}
+        else:
+            nxt_of = {i: self._stub_token(r) for i, r in live}
 
         if self.experts is not None:
-            # the whole step's router output is ONE observe_routing + ONE
-            # activate_batch call; with the vectorized cache that means
-            # zero per-expert registry scans
-            sets = [self._stub_expert_set(r) for _, r in live]
+            # the whole step's router output — every live slot, every MoE
+            # layer — is ONE observe_routing + ONE activate_batch call;
+            # with the vectorized cache that means zero per-expert
+            # registry scans
+            if router is not None:
+                sets = [[int(e) for e in router[l, i]]
+                        for i, _ in live for l in range(router.shape[0])]
+            else:
+                sets = [self._stub_expert_set(r) for _, r in live]
             self.experts.observe_routing(sets)
             self.experts.activate_batch(sets)
 

@@ -600,3 +600,113 @@ def test_cuda_engine_state_placements(cuda_device, system):
         torch.cuda.synchronize()
         assert cs.tree_diff(plain, kern) == [], mode
         assert kern["placement"]["mode"] == mode
+
+
+# --------------------------------------------------------------------------- #
+# the model zoo: the card against the host's CPU on the same parameters       #
+# --------------------------------------------------------------------------- #
+
+MODEL_ARCHS = ["qwen2.5-3b", "gemma-2b", "qwen3-32b", "phi3-medium-14b",
+               "phi-3-vision-4.2b", "kimi-k2-1t-a32b", "deepseek-v2-236b"]
+
+
+def _model_pair(arch, cuda_device, **replace):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+
+    cfg = get_smoke(arch).replace(**replace)
+    card, host = build_model(cfg, device="cuda"), build_model(cfg,
+                                                              device="cpu")
+    params = card.init_params(0)
+    return card, params, host, chip_smoke().params_copy(params, "cpu")
+
+
+def _model_batch(cfg, seed=0, b=2, s=64):
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        n = cfg.frontend.n_positions
+        return {"tokens": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (b, s - n))),
+                "patches": torch.from_numpy(rng.normal(size=(
+                    b, n, cfg.frontend.feature_dim)).astype(np.float32))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (b, s)))}
+
+
+def _on(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_cuda_models_match_cpu(cuda_device, arch):
+    """Each ported arch's float32 smoke model on the card: train logits,
+    prefill logits and cache, and eight teacher-forced decode steps
+    within 1e-4 of the host's CPU on the same parameters, the argmax
+    tokens and the router indices equal."""
+    card, params, host, h_params = _model_pair(arch, cuda_device)
+    batch = _model_batch(card.cfg)
+    for fn in ("train_logits", "prefill"):
+        got = getattr(card, fn)(params, _on(batch, "cuda"))
+        want = getattr(host, fn)(h_params, batch)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4,
+                                   atol=1e-4)
+    router = card.cfg.moe is not None
+    dec = "decode_step_router" if router else "decode_step"
+    cc, hc = card.init_cache(2, 16), host.init_cache(2, 16)
+    toks = batch["tokens"]
+    for t in range(8):
+        got = getattr(card, dec)(params, {"tokens": toks[:, t:t + 1].cuda()},
+                                 cc)
+        want = getattr(host, dec)(h_params, {"tokens": toks[:, t:t + 1]}, hc)
+        cc, hc = got[1], want[1]
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4,
+                                   atol=1e-4)
+        assert torch.equal(got[0].argmax(-1).cpu(), want[0].argmax(-1))
+        if router:
+            assert torch.equal(got[2].cpu(), want[2])
+    for key in hc:
+        torch.testing.assert_close(cc[key].cpu(), hc[key], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "kimi-k2-1t-a32b"])
+def test_cuda_model_engine_matches_cpu(cuda_device, arch):
+    """``ServingEngine`` with a model (``kv="sharded"``; the MoE one with
+    its expert tier) on the card and on the host's CPU: the same tokens,
+    page counters, expert counters and prefetch log."""
+    import dataclasses
+
+    card, params, host, h_params = _model_pair(arch, cuda_device)
+    moe = "vec" if card.cfg.moe else None
+    runs = []
+    for model, p, dev in ((card, params, "cuda"), (host, h_params, "cpu")):
+        eng = ServingEngine(model, p, max_batch=3, max_seq=64, page_size=8,
+                            hbm_pages=10, kv="sharded", moe=moe, device=dev)
+        for i in range(5):
+            eng.submit(list(range(10)) + [30 + i, 40 + i], max_new_tokens=4)
+        done = eng.run_until_idle()
+        runs.append(({r.req_id: r.generated for r in done},
+                     dataclasses.asdict(eng.pages.stats),
+                     eng.experts and (dataclasses.asdict(eng.experts.stats),
+                                      eng.experts.prefetch_log)))
+    assert runs[0] == runs[1]
+    assert len(runs[0][0]) == 5
+
+
+@pytest.mark.gpu
+def test_cuda_int8_mla_cache_matches_cpu(cuda_device):
+    """The int8 latent cache on the card against the host's: int8 entries
+    equal or one apart (at least 99.9% equal), logits within 1e-3."""
+    card, params, host, h_params = _model_pair(
+        "deepseek-v2-236b", cuda_device, kv_cache_dtype="int8")
+    cc, hc = card.init_cache(2, 16), host.init_cache(2, 16)
+    toks = _model_batch(card.cfg, s=12)["tokens"]
+    for t in range(12):
+        lc, cc = card.decode_step(params, {"tokens": toks[:, t:t + 1].cuda()},
+                                  cc)
+        lh, hc = host.decode_step(h_params, {"tokens": toks[:, t:t + 1]}, hc)
+        torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
+    diff = (cc["latent"].cpu().int() - hc["latent"].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999

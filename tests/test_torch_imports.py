@@ -1,9 +1,10 @@
 """The port's boundaries: it imports neither JAX nor the reference, its
 entry points default to the card and raise without one, the parts of
 the reference it does not have yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them (wide registries, tenants and dedup
-no longer do), and ``chip_smoke.py`` exits non-zero without a card and
-names the phase that failed."""
+the ROADMAP.md item that ports them (wide registries, tenants, dedup and
+the transformer models no longer do; the hybrid, ssm and audio model
+families still do), and ``chip_smoke.py`` exits non-zero without a card
+and names the phase that failed."""
 
 import torch_parity  # noqa: F401
 
@@ -22,8 +23,11 @@ from repro_torch.core import (db_join_trace, fast_lru_hit_rate,
 from repro_torch.core.engine import simulate_batch, simulate_trace, sweep
 from repro_torch.core.engine.tables import (make_pfcs_cache, pfcs_tables,
                                             related_bulk, successor_table)
+from repro_torch.configs import get_smoke
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
+from repro_torch.models import build_model
+from repro_torch.models.convert import params_from_reference, reference_layout
 from repro_torch.cases import (case_dedup, case_elastic, case_moe,
                                case_serving, case_tenancy, run_table1)
 from repro_torch.serving.elastic import ElasticShardedPagedKVCache
@@ -67,13 +71,18 @@ engine = {"repro_torch.core." + m for m in (
     "engine.policies_vec", "engine.hierarchy", "engine.pfcs_vec",
     "engine.batch")} | {"repro_torch.kernels.engine"}
 assert engine <= set(names), sorted(engine - set(names))
+models = {"repro_torch.models." + m for m in (
+    "layers", "unroll", "attention", "moe", "mla", "transformer",
+    "model_zoo", "convert")} | {"repro_torch.configs.base",
+                                "repro_torch.configs.qwen2_5_3b"}
+assert models <= set(names), sorted(models - set(names))
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     """Every ``repro_torch`` module and ``chip_smoke`` import in a process
     where ``import jax`` and ``import repro`` raise, the trace engine's
-    modules among them."""
+    and the model zoo's modules among them."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -146,7 +155,28 @@ ENTRY_POINTS = {
     "launch.serve": lambda **kw: serve.main(
         ["--null-model", "--requests", "2"]
         + (["--device", kw["device"]] if kw else [])),
+    "launch.serve model": lambda **kw: serve.main(
+        ["--requests", "1", "--max-new", "2"]
+        + (["--device", kw["device"]] if kw else [])),
+    "build_model": lambda **kw: build_model(get_smoke("qwen2.5-3b"), **kw),
+    "params_from_reference": lambda **kw: params_from_reference(
+        get_smoke("gemma-2b"), _reference_tree(), **kw),
+    "case_moe real router": lambda **kw: case_moe(smoke=True,
+                                                  real_router=True, **kw),
 }
+
+
+def _reference_tree():
+    """A reference-layout tree of float32 numpy arrays (the port's own
+    parameters stacked back), as the tests make it from JAX's."""
+    cfg = get_smoke("gemma-2b")
+    params = build_model(cfg, device="cpu").init_params(0)
+    return {k: v for k, v in _numpy(reference_layout(cfg, params)).items()}
+
+
+def _numpy(tree):
+    return {k: _numpy(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
 
 
 def _trace():
@@ -172,10 +202,14 @@ def test_default_device_needs_a_card(name, monkeypatch, capsys):
 
 
 NOT_PORTED = {
-    "model": (lambda: ServingEngine(object(), None, device="cpu"), "A.14"),
+    "model": (lambda: build_model(get_smoke("zamba2-7b"), device="cpu"),
+              "A.14"),
     "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
              "A.8"),
-    "serve model": (lambda: serve.main(["--device", "cpu"]), "A.14"),
+    "serve model": (lambda: serve.main(["--arch", "xlstm-1.3b", "--device",
+                                        "cpu"]), "A.14"),
+    "audio model": (lambda: build_model(get_smoke("seamless-m4t-large-v2"),
+                                        device="cpu"), "A.14"),
 }
 
 
@@ -239,8 +273,9 @@ PORT_ADDITIONS = {
 NOT_YET = {}
 
 
-@pytest.mark.parametrize("package", ["core", "core.engine", "kernels",
-                                     "obs", "serving", "tenancy"])
+@pytest.mark.parametrize("package", ["configs", "core", "core.engine",
+                                     "kernels", "models", "obs", "serving",
+                                     "tenancy"])
 def test_package_exports_match_the_reference(package):
     """Each ported package's ``__all__`` is the reference's, apart from the
     named additions and the names whose ROADMAP item is still open; every
@@ -1116,6 +1151,93 @@ def test_chip_smoke_dedup_phase_on_cpu(monkeypatch):
         chip_smoke.DEDUP_FULL, counters=counters))
     with pytest.raises(AssertionError, match="counters.cow_copies"):
         chip_smoke.phase_dedup(chip_smoke.Context())
+
+
+def _smoke_models(monkeypatch, chip_smoke):
+    """``model_config`` gives the smoke configurations, with the cuts the
+    phases ask for (the full widths need the card)."""
+    monkeypatch.setattr(chip_smoke, "model_config",
+                        lambda arch, **cut: get_smoke(arch).replace(**cut))
+
+
+def test_chip_smoke_model_check_on_cpu(monkeypatch):
+    """``model_check`` on the CPU at the smoke widths: qwen's card side
+    equals its host side (both the CPU here), deepseek's prefill equals
+    its train forward, its router gives ``(1, B, top_k)`` distinct
+    indices, the int8 cache stays within its bound; a tolerance no
+    difference can meet fails the phase."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _smoke_models(monkeypatch, chip_smoke)
+    out = chip_smoke.phase_model_check(chip_smoke.Context())
+    assert out["allow_tf32"] is False
+    qwen, ds = out["qwen2.5-3b"], out["deepseek-v2-236b"]
+    assert qwen["config"]["n_layers"] == 2
+    assert max(qwen["max_abs_err"].values()) <= chip_smoke.MODEL_TRAIN_TOL
+    assert ds["config"]["n_layers"] == 2
+    assert all(len(set(row)) == 2 for layer in ds["router"]
+               for row in layer) and len(ds["router"]) == 1
+    assert 0 < ds["int8_rel_err"] < chip_smoke.INT8_REL_BOUND
+    monkeypatch.setattr(chip_smoke, "INT8_REL_BOUND", ds["int8_rel_err"])
+    with pytest.raises(AssertionError, match="int8"):
+        chip_smoke.phase_model_check(chip_smoke.Context())
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(AssertionError, match="TF32"):
+        chip_smoke.phase_model_check(chip_smoke.Context())
+
+
+def test_chip_smoke_model_serving_on_cpu(monkeypatch):
+    """``model_serving`` on the CPU with the smoke model: every request
+    completes, the page counters equal the ``model=None`` run's, the
+    sharded refreshes launch the mask and the gcd (held against their
+    plain versions), and prefill steps and ticks are timed apart."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    _count_plain_launches(monkeypatch, chip_smoke.FLAT)
+    _smoke_models(monkeypatch, chip_smoke)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "emit", lines.append)
+    out = chip_smoke.phase_model_serving(chip_smoke.Context())
+    c = chip_smoke.MODEL_SERVING
+    assert out["requests"] == c["requests"]
+    assert out["tokens"] == c["requests"] * c["max_new"]
+    assert out["decode_ticks"]["steps"] == 16
+    assert out["prefill_steps"]["steps"] == sum(
+        len(p) for p in chip_smoke.launcher_prompts(512, c["requests"],
+                                                    c["shared_prefix"]))
+    assert out["launches"]["divisibility_mask"] > 0
+    assert sorted(out["shapes_checked"]) == sorted(
+        k for k in chip_smoke.FLAT if out["launches"][k])
+    assert {ln["phase"] for ln in lines} == {"kernel_model_serving"}
+    split = out["sharded_time_split"]
+    assert split["launches_outside_kernel_calls"] == 0
+    assert out["page_stats"]["shared_prefix_pages"] > 0
+
+
+def test_chip_smoke_launcher_model_on_cpu(monkeypatch):
+    """``launcher_model`` on the CPU: the launcher with ``--arch
+    qwen2.5-3b`` serves its 16 requests through the engine and prints
+    ``LAUNCHER_ENGINE_KEYS``."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    out = chip_smoke.phase_launcher_model(chip_smoke.Context())
+    assert out["completed"] == 16 and out["front_end"] == "engine"
+    assert set(chip_smoke.LAUNCHER_ENGINE_KEYS) <= set(out)
+
+
+def test_chip_smoke_real_router_on_cpu(monkeypatch):
+    """``moe``'s real-router block on the CPU (both sides the CPU): every
+    router choice, page and expert counter and the prefetch log equal,
+    no false positive; a router choice that differs fails, naming the
+    k-th gap of both sides."""
+    chip_smoke = _cpu_smoke(monkeypatch)
+    out = chip_smoke.real_router_check()
+    assert out["false_positive_prefetches"] == 0
+    assert out["router_calls"] > 0 and out["prefetches"] > 0
+    assert out["min_kth_gap"] > 0
+    idx = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    gap = torch.tensor([0.1, 0.0])
+    assert chip_smoke.router_failures([(idx, gap)], [(idx, gap)]) == []
+    bad = chip_smoke.router_failures(
+        [(idx, gap)], [(torch.tensor([[0, 1], [3, 2]]), gap)])
+    assert len(bad) == 1 and "token 1" in bad[0] and "gap" in bad[0]
 
 
 def test_chip_smoke_golden_arrivals_are_the_tests():
