@@ -8,11 +8,11 @@ It puts ``<root>/src`` on ``sys.path`` itself, builds the port's eight
 CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``, one process
 per source, started together), and drives the port's serving path
 (with its elastic cache, its MoE expert tier, its observability layer,
-its multi-tenant QoS tier and its cross-tenant dedup), its transformer
-models, its wide (multi-limb) path and its Table-1 trace engine on the
-card in phases, each printing one JSON line with its seconds (the sharded
-and elastic runs also report where their wall time went,
-``sharded_time_split``):
+its multi-tenant QoS tier and its cross-tenant dedup), its models (the
+transformers, zamba2, the xLSTM stack, the encoder-decoder), its wide
+(multi-limb) path and its Table-1 trace engine on the card in phases,
+each printing one JSON line with its seconds (the sharded and elastic
+runs also report where their wall time went, ``sharded_time_split``):
 
   device         the card, the torch and CUDA versions, the interpreter,
                  the ``nvcc`` found, the build directory, and
@@ -84,28 +84,39 @@ and elastic runs also report where their wall time went,
                  probability gap of both sides), ``PageStats``,
                  ``ExpertCacheStats`` and the prefetch log equal, no
                  false-positive prefetch (Theorem 1), no registry scan;
-  model_check    the model zoo at full width and two layers, float32, TF32
-                 off: ``qwen2.5-3b`` (B 2, S 64) ``train_logits``,
-                 ``prefill`` and a teacher-forced ``decode_step`` on the
-                 card within 1e-3 of the same calls on the host's CPU on
-                 the same parameters, decode within 2e-3 of train's next
-                 position; ``deepseek-v2-236b`` (one dense and one MoE
-                 layer, MLA; B 2, S 32): prefill against train within
-                 2e-3, ``decode_step_router``'s (1, 2, 6) distinct
-                 indices, the int8 latent cache within 8% after 12
-                 teacher-forced steps;
-  model_serving  the published ``qwen2.5-3b`` (36 layers, bfloat16)
-                 through ``ServingEngine(kv="sharded")``, 8 requests of
-                 the launcher's prompt recipe: every request completes,
-                 every logit finite, every ``PageStats`` counter but
-                 ``registry_scans`` equal to the ``model=None`` run's, the
-                 flat kernels held against their plain versions at every
-                 shape; parameters, peak memory, init seconds, ms per
-                 prefill step and per tick, tokens/s, the refresh's time
-                 split, bf16 against float32 logits at two layers;
-  launcher_model ``repro_torch.launch.serve --arch qwen2.5-3b`` (its smoke
-                 model): 16 requests complete, the reference launcher's
-                 keys;
+  model_check    the model zoo at full width and cut depth, float32, TF32
+                 off: ``qwen2.5-3b`` (two layers; B 2, S 64)
+                 ``train_logits``, ``prefill`` and a teacher-forced
+                 ``decode_step`` on the card within 1e-3 of the same calls
+                 on the host's CPU on the same parameters, decode within
+                 2e-3 of train's next position; ``deepseek-v2-236b`` (one
+                 dense and one MoE layer, MLA; B 2, S 32): prefill against
+                 train within 2e-3, ``decode_step_router``'s (1, 2, 6)
+                 distinct indices, the int8 latent cache within 8% after
+                 12 teacher-forced steps; ``zamba2-7b`` (7 Mamba-2 layers,
+                 one shared-block application; S 256), ``xlstm-1.3b`` (8
+                 blocks, the eighth an sLSTM; S 64) and
+                 ``seamless-m4t-large-v2`` (2 + 2 layers; S 64): train and
+                 prefill logits, every cache tensor and the decode steps
+                 (eight teacher-forced from ``init_cache`` for the
+                 recurrent two, one from the prefill's cache for the
+                 encoder-decoder) within 1e-3 of the host's CPU, decode
+                 (and a recurrent prefill) within 2e-3 of train;
+  model_serving  published models in bfloat16 through
+                 ``ServingEngine(kv="sharded")``, 4 requests each of the
+                 launcher's prompt recipe: ``qwen2.5-3b`` (36 layers), the
+                 81-layer ``zamba2-7b``, the 48-block ``xlstm-1.3b`` and
+                 the 24 + 24-layer ``seamless-m4t-large-v2``: every
+                 request completes, every logit finite, every
+                 ``PageStats`` counter but ``registry_scans`` equal to the
+                 ``model=None`` run's, the flat kernels held against their
+                 plain versions at every shape; parameters, peak memory,
+                 init seconds, ms per prefill step and per tick,
+                 tokens/s, the refresh's time split; qwen's bf16 against
+                 float32 logits at two layers;
+  launcher_model ``repro_torch.launch.serve --arch ARCH`` (its smoke
+                 model) for qwen2.5-3b and the three families above: 16
+                 requests complete, the reference launcher's keys;
   obs            the observability layer: ``SlotMachine`` and
                  ``SlotOracle`` on ``tests/test_obs.py``'s golden spec
                  with ``kv="sharded"`` and ``"elastic"``, event streams
@@ -443,6 +454,22 @@ MODEL_CHECK = {
     "qwen2.5-3b": dict(n_layers=2, batch=2, seq=64),
     "deepseek-v2-236b": dict(n_layers=2, batch=2, seq=32, int8_steps=12),
 }
+#: ``model_check``'s recurrent and encoder-decoder families, float32 at
+#: full width, each depth cut (``cut``: fields of the configuration, a
+#: dict for a field of a nested one): ``zamba2-7b`` (d 3584, 112 SSM heads
+#: in 2 groups, chunk 256) at 7 Mamba-2 layers, one shared-block
+#: application, S 256 (the chunk must divide it); ``xlstm-1.3b`` (d 2048,
+#: 4 heads) at 8 blocks, so that its sLSTM runs; ``seamless-m4t-large-v2``
+#: (d 1024, vocab 256,206) at 2 + 2 layers.  ``steps``: the teacher-forced
+#: decode steps from ``init_cache`` of a recurrent family (the encoder-
+#: decoder decodes one step from its prefill's cache, as ``qwen_check``)
+FAMILY_CHECK = {
+    "zamba2-7b": dict(cut=dict(n_layers=7), batch=2, seq=256, steps=8),
+    "xlstm-1.3b": dict(cut=dict(n_layers=8), batch=2, seq=64, steps=8),
+    "seamless-m4t-large-v2": dict(
+        cut=dict(encdec=dict(n_encoder_layers=2, n_decoder_layers=2)),
+        batch=2, seq=64),
+}
 #: ``model_check``'s tolerances: card against the host's CPU on the same
 #: float32 parameters, and decode / prefill against the train forward
 #: (``tests/test_models.py``'s bound); the int8 cache's relative bound
@@ -450,11 +477,25 @@ MODEL_CHECK = {
 MODEL_TOL = 1e-3
 MODEL_TRAIN_TOL = 2e-3
 INT8_REL_BOUND = 0.08
-#: ``model_serving``: the published qwen2.5-3b (36 layers, bfloat16)
-#: through ``ServingEngine(kv="sharded")``, the launcher's prompt recipe
-#: (seed 0, a shared prefix, then 4-11 tokens each)
-MODEL_SERVING = dict(arch="qwen2.5-3b", requests=8, max_new=8, max_batch=4,
-                     max_seq=192, shared_prefix=32)
+#: ``model_serving``: published models in bfloat16 through
+#: ``ServingEngine(kv="sharded")``, the launcher's prompt recipe (seed 0, a
+#: shared prefix, then 4-11 tokens each): qwen2.5-3b (36 layers; 8
+#: requests until the recurrent families came, now 4), then zamba2-7b
+#: (81 Mamba-2 layers, 2 shared blocks), xlstm-1.3b (48 blocks) and
+#: seamless-m4t-large-v2 (24 + 24 layers), each at its published depth
+MODEL_SERVING = [
+    dict(arch="qwen2.5-3b", requests=4, max_new=8, max_batch=4, max_seq=192,
+         shared_prefix=32),
+    dict(arch="zamba2-7b", requests=4, max_new=4, max_batch=4, max_seq=64,
+         shared_prefix=8),
+    dict(arch="xlstm-1.3b", requests=4, max_new=4, max_batch=4, max_seq=64,
+         shared_prefix=8),
+    dict(arch="seamless-m4t-large-v2", requests=4, max_new=4, max_batch=4,
+         max_seq=64, shared_prefix=8),
+]
+#: ``launcher_model``'s archs: the launcher with ``--arch`` for each family
+LAUNCHER_ARCHS = ("qwen2.5-3b", "zamba2-7b", "xlstm-1.3b",
+                  "seamless-m4t-large-v2")
 #: the keys of the reference launcher's output with a model (``front_end
 #: == "engine"``), which ``launcher_model`` must print
 LAUNCHER_ENGINE_KEYS = ("front_end", "kv", "completed", "decode_tokens",
@@ -1806,12 +1847,22 @@ def real_router_check() -> dict:
 # the model zoo                                                               #
 # --------------------------------------------------------------------------- #
 
+def cut_config(cfg, **cut):
+    """``cfg`` with ``cut`` applied; a dict replaces fields of a nested
+    configuration (``encdec=dict(n_decoder_layers=2)``)."""
+    import dataclasses
+
+    return cfg.replace(**{
+        k: (dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+            else v) for k, v in cut.items()})
+
+
 def model_config(arch: str, **cut):
     """The published configuration of ``arch`` with ``cut`` applied (the
     CPU rehearsals replace this with small configurations)."""
     from repro_torch.configs import get_config
 
-    return get_config(arch).replace(**cut)
+    return cut_config(get_config(arch), **cut)
 
 
 def free_card() -> None:
@@ -1970,17 +2021,118 @@ def deepseek_check() -> dict:
             "run_s": run_s}
 
 
+def model_inputs(cfg, b: int, s: int) -> dict:
+    """A (b, s) batch of tokens from seed 0, with the audio family's frame
+    features (``S_enc = s``)."""
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s)))}
+    if cfg.family == "audio":
+        batch["features"] = torch.from_numpy(rng.normal(
+            size=(b, s, cfg.frontend.feature_dim)).astype(np.float32))
+    return batch
+
+
+def family_run(model, params, batch: dict, steps) -> dict:
+    """``train_logits``, ``prefill`` and decode steps of one model on its
+    device.  A recurrent family (``steps``) decodes that many teacher-
+    forced steps from ``init_cache``, continuing train positions 0, 1,
+    ...; the encoder-decoder prefills all but the last token (its cross
+    K/V over every frame), grows the cache to the sequence and decodes
+    the last one."""
+    dev = model.device
+    on = {k: v.to(dev) for k, v in batch.items()}
+    b, s = on["tokens"].shape
+    full = model.train_logits(params, on)[0]
+    if steps is not None:
+        last, cache = model.prefill(params, on)
+        dec, positions = model.init_cache(b, steps), list(range(steps))
+    else:
+        last, cache = model.prefill(params, dict(on, tokens=on["tokens"][
+            :, :-1]))
+        dec, positions = grown_cache(model, cache, b, s), [s - 1]
+    logits = []
+    for t in positions:
+        step, dec = model.decode_step(params, {"tokens": on["tokens"][
+            :, t:t + 1]}, dec)
+        logits.append(step[:, 0])
+    return {"full": full, "last": last, "cache": cache, "steps": logits,
+            "positions": positions, "decode_cache": dec}
+
+
+def family_check(arch: str) -> dict:
+    """One family of ``FAMILY_CHECK`` at full width and cut depth,
+    float32: ``family_run`` on the card and on the host's CPU on the same
+    parameters, each output (train and prefill logits, every tensor of
+    the prefill's and of the last decode step's cache, each decode step's
+    logits) within ``MODEL_TOL``; on the card, each decode step within
+    ``MODEL_TRAIN_TOL`` of the train forward at its position, and a
+    recurrent family's prefill logits of train's last position."""
+    from repro_torch.models import build_model
+
+    c = FAMILY_CHECK[arch]
+    cfg = model_config(arch, dtype="float32", **c["cut"])
+    b, s, steps = c["batch"], c["seq"], c.get("steps")
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=DEVICE)
+    params = card.init_params(0)
+    host = build_model(cfg, device="cpu")
+    h_params = params_copy(params, "cpu")
+    init_s = time.perf_counter() - t0
+    batch = model_inputs(cfg, b, s)
+    runs, times = {}, {}
+    for side, model, p in (("card", card, params), ("host", host, h_params)):
+        t0 = time.perf_counter()
+        runs[side] = family_run(model, p, batch, steps)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        times[side] = time.perf_counter() - t0
+    got, want = runs["card"], runs["host"]
+    errs = {"train_logits": all_close("train_logits", got["full"],
+                                      want["full"], MODEL_TOL),
+            "prefill_logits": all_close("prefill", got["last"], want["last"],
+                                        MODEL_TOL)}
+    for key in ("cache", "decode_cache"):
+        for (path, x), (_, y) in zip(state_leaves(got[key]),
+                                     state_leaves(want[key])):
+            name = f"{key} {'/'.join(map(str, path))}"
+            errs[name] = all_close(name, x, y, MODEL_TOL)
+    errs["decode_logits"] = max(
+        all_close(f"decode step {t}", x, y, MODEL_TOL)
+        for t, x, y in zip(got["positions"], got["steps"], want["steps"]))
+    errs["decode_vs_train"] = max(
+        all_close(f"decode step {t} vs train", x, got["full"][:, t],
+                  MODEL_TRAIN_TOL)
+        for t, x in zip(got["positions"], got["steps"]))
+    if steps is not None:
+        errs["prefill_vs_train"] = all_close(
+            "prefill vs train", got["last"], got["full"][:, -1],
+            MODEL_TRAIN_TOL)
+    n = sum(p.numel() for p in params.parameters())
+    del card, params, host, h_params, runs, got, want
+    free_card()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads],
+                       "vocab": cfg.vocab_size, "cut": c["cut"],
+                       "batch": b, "seq": s, "decode_steps": steps or 1},
+            "params": n, "weight_gb": n * 4 / 1e9, "max_abs_err": errs,
+            "init_s": init_s, "card_s": times["card"],
+            "host_s": times["host"]}
+
+
 def phase_model_check(ctx: Context) -> dict:
     """The model zoo at full width and cut depth in float32, TF32 off:
-    ``qwen_check`` (card against the host's CPU) and ``deepseek_check``
-    (MLA, MoE routing, the int8 latent cache); each model freed before
-    the next."""
+    ``qwen_check`` (card against the host's CPU), ``deepseek_check``
+    (MLA, MoE routing, the int8 latent cache) and ``family_check`` for
+    zamba2, xLSTM and the encoder-decoder; each model freed before the
+    next."""
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         raise AssertionError("TF32 matmuls are on: float32 checks need "
                              "them off")
     return {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "qwen2.5-3b": qwen_check(),
-            "deepseek-v2-236b": deepseek_check()}
+            "deepseek-v2-236b": deepseek_check(),
+            **{arch: family_check(arch) for arch in FAMILY_CHECK}}
 
 
 def launcher_prompts(vocab: int, n: int, shared_prefix: int) -> list:
@@ -2049,22 +2201,20 @@ def bf16_logit_error(cfg, n_layers: int = 2) -> float:
     return rel
 
 
-def phase_model_serving(ctx: Context) -> dict:
-    """The published qwen2.5-3b (36 layers, bfloat16, untied) served
-    through ``ServingEngine(kv="sharded")``: every request completes with
-    finite logits, every ``PageStats`` counter but ``registry_scans``
-    equals the ``model=None``, ``kv="vec"`` run of the same prompts, and
-    each flat kernel the sharded refreshes launched is held against its
-    plain version at every shape.  Reports the parameters, the card's
-    peak memory, init seconds, decode ms (prefill steps and ticks apart),
-    tokens/s, the refresh's time split and the bfloat16 logits' error
-    against float32 at two layers."""
+def serve_model(c: dict) -> dict:
+    """One published model of ``MODEL_SERVING`` (bfloat16) served through
+    ``ServingEngine(kv="sharded")``: every request completes with finite
+    logits, every ``PageStats`` counter but ``registry_scans`` equals the
+    ``model=None``, ``kv="vec"`` run of the same prompts, and each flat
+    kernel the sharded refreshes launched is held against its plain
+    version at every shape.  Reports the parameters, the card's peak
+    memory, init seconds, decode ms (prefill steps and ticks apart),
+    tokens/s and the refresh's time split."""
     import dataclasses
 
     from repro_torch.models import build_model, count_params_analytic
     from repro_torch.serving.engine import ServingEngine
 
-    c = MODEL_SERVING
     cfg = model_config(c["arch"])
     if torch.cuda.is_available():
         torch.cuda.reset_peak_memory_stats()
@@ -2090,33 +2240,36 @@ def phase_model_serving(ctx: Context) -> dict:
         done = engine.run_until_idle()
         return done, time.perf_counter() - t0
 
+    label = f"model serving {cfg.name}"
     (done, wall), launches, cap, seconds = traced(serve, eng)
     if (len(done) != c["requests"]
             or any(len(r.generated) != c["max_new"] for r in done)):
-        raise AssertionError(f"model serving: {len(done)} of "
-                             f"{c['requests']} requests completed")
+        raise AssertionError(f"{label}: {len(done)} of {c['requests']} "
+                             f"requests completed")
     if not times.finite:
-        raise AssertionError("model serving: a logit was not finite")
+        raise AssertionError(f"{label}: a logit was not finite")
     null = ServingEngine(None, None, kv="vec", **kw)
     serve(null)
     stats = dataclasses.asdict(eng.pages.stats)
     stub = dataclasses.asdict(null.pages.stats)
     stats.pop("registry_scans"), stub.pop("registry_scans")
     if stats != stub:
-        raise AssertionError(f"model serving's page counters {stats} != "
-                             f"the model=None run's {stub}")
+        raise AssertionError(f"{label}'s page counters {stats} != the "
+                             f"model=None run's {stub}")
     launched = [k for k in FLAT if launches.get(k)]
     if "divisibility_mask" not in launched:
-        raise AssertionError(f"model serving: the sharded refresh launched "
-                             f"no mask: {launches}")
-    rows = check_path("model_serving", launches, cap.inputs, timed=False,
-                      required=launched, shape_launches=cap.launches)
+        raise AssertionError(f"{label}: the sharded refresh launched no "
+                             f"mask: {launches}")
+    rows = check_path(f"model_serving_{c['arch']}", launches, cap.inputs,
+                      timed=False, required=launched,
+                      shape_launches=cap.launches)
     peak = (torch.cuda.max_memory_allocated() if torch.cuda.is_available()
             else None)
     tokens = sum(len(r.generated) for r in done)
     del eng, model, params, null
     free_card()
-    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+    return {"arch": cfg.name, "family": cfg.family,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
             "params": n, "params_analytic": count_params_analytic(cfg),
             "weight_gb": weight_bytes / 1e9,
             "max_memory_allocated_gb": None if peak is None else peak / 1e9,
@@ -2125,25 +2278,38 @@ def phase_model_serving(ctx: Context) -> dict:
             **times.summary(), "page_stats": stats,
             "launches": launches,
             "shapes_checked": {r["name"]: r["shapes_checked"] for r in rows},
-            "sharded_time_split": time_split(wall, seconds, launches, rows),
-            "bf16_vs_f32_rel_err_2_layers": bf16_logit_error(cfg)}
+            "sharded_time_split": time_split(wall, seconds, launches, rows)}
+
+
+def phase_model_serving(ctx: Context) -> dict:
+    """Each model of ``MODEL_SERVING`` through ``serve_model``, freed
+    before the next, and qwen2.5-3b's bfloat16 logits against float32 at
+    two layers."""
+    out = {c["arch"]: serve_model(c) for c in MODEL_SERVING}
+    qwen = MODEL_SERVING[0]["arch"]
+    out[qwen]["bf16_vs_f32_rel_err_2_layers"] = bf16_logit_error(
+        model_config(qwen))
+    return out
 
 
 def phase_launcher_model(ctx: Context) -> dict:
-    """``python -m repro_torch.launch.serve --arch qwen2.5-3b``: the
-    reference launcher's defaults with its smoke model, on the card (the
-    default device, named; called in this process, as the other launcher
-    phases are): every request completes, and it prints the reference
-    launcher's keys."""
+    """``python -m repro_torch.launch.serve --arch ARCH`` for each of
+    ``LAUNCHER_ARCHS``: the reference launcher's defaults with the arch's
+    smoke model, on the card (the default device, named; called in this
+    process, as the other launcher phases are): every request completes,
+    and it prints the reference launcher's keys."""
     from repro_torch.launch import serve
 
-    with contextlib.redirect_stdout(io.StringIO()):
-        out = serve.main(["--arch", "qwen2.5-3b", "--device", DEVICE])
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    missing = [k for k in LAUNCHER_ENGINE_KEYS if k not in out]
-    if missing or out["completed"] != 16 or out["front_end"] != "engine":
-        raise AssertionError(f"launcher with a model: {out}")
+    out = {}
+    for arch in LAUNCHER_ARCHS:
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = serve.main(["--arch", arch, "--device", DEVICE])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        missing = [k for k in LAUNCHER_ENGINE_KEYS if k not in got]
+        if missing or got["completed"] != 16 or got["front_end"] != "engine":
+            raise AssertionError(f"launcher with --arch {arch}: {got}")
+        out[arch] = got
     return out
 
 

@@ -1,5 +1,6 @@
-"""Model zoo: the decoder-only transformer family (dense, GQA/MQA, VLM
-stub, MoE, MLA) in PyTorch; port of ``repro.models``."""
+"""Model zoo: every assigned architecture family (the decoder-only
+transformers, zamba2, the xLSTM stack, the encoder-decoder) in PyTorch;
+port of ``repro.models``."""
 
 from .model_zoo import Model, build_model, count_params_analytic
 

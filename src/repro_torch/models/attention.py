@@ -25,7 +25,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from .layers import (F32, _dtype, apply_rope, dense, dense_init, init_rmsnorm,
-                     rms_norm)
+                     rms_norm, rope_table)
+from .mla import _write_row, write_index
 from .unroll import scan_or_unroll
 
 Params = Dict[str, Any]
@@ -179,3 +180,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = _gqa_mix(w.to(v_cache.dtype), v_cache)
     return _merge_groups(out)
+
+
+def decode_tables(cache_len: torch.Tensor, rows: int, head_dim: int,
+                  theta: float) -> Dict[str, torch.Tensor]:
+    """What every attention layer of one decode step shares, made once:
+    the positions' rotation table (``rope``), the (clamped) write index
+    (``at``) and the valid cache rows (``valid``)."""
+    return {"rope": rope_table(cache_len[:, None], head_dim, theta),
+            "at": write_index(cache_len, rows),
+            "valid": valid_positions(cache_len + 1, rows)}
+
+
+def self_attention_decode(x: torch.Tensor, p, cfg, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, cache_len: torch.Tensor,
+                          step: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One token's self-attention against its layer's caches (B,S,KV,hd),
+    its k/v written in place at ``cache_len`` (clamped to the last row);
+    ``step``: the decode step's :func:`decode_tables`.  Returns the
+    output projection (the caller adds the residual)."""
+    q, k, v = qkv_project(x, p, cfg, cache_len[:, None], step["rope"])
+    _write_row(k_cache, cache_len, k[:, 0], step["at"])
+    _write_row(v_cache, cache_len, v[:, 0], step["at"])
+    o = decode_attention(q, k_cache, v_cache, cache_len + 1, step["valid"])
+    return out_project(o, p)

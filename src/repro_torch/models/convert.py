@@ -1,12 +1,22 @@
 """Parameters across the two layouts: the reference's pytree (layers
-stacked along a leading axis, ``dense_layers`` then ``moe_layers``) and
-the port's :class:`~repro_torch.models.layers.ParamTree` (one module per
-layer in ``params["layers"]``).
+stacked along a leading axis: the transformer's ``dense_layers`` then
+``moe_layers``, zamba2's ``mamba_layers``, the xLSTM stack's ``m_stack``,
+the encoder-decoder's ``enc_layers`` and ``dec_layers``) and the port's
+:class:`~repro_torch.models.layers.ParamTree` (one module per layer: the
+transformer's in ``params["layers"]``, the other families' in a list
+under the reference's key; the reference's own lists, ``shared_blocks``
+and ``s_blocks``, stay lists).
 
 ``params_from_reference`` takes the reference's parameters as nested
-dicts of float32 numpy arrays (a bfloat16 leaf passes through float32
-exactly), so nothing here imports JAX; ``reference_layout`` is its
-inverse, the port's parameters stacked back into the reference's tree.
+dicts (and lists) of float32 numpy arrays (a bfloat16 leaf passes
+through float32 exactly), so nothing here imports JAX; each leaf takes
+the dtype of the leaf at the same path of the port's own parameters
+(``"meta"`` tensors of the family's init), so a float32 leaf of the
+reference (the router, Mamba-2's ``A_log`` / ``D`` / ``dt_bias``, the
+mLSTM gates, the sLSTM's ``bias``) stays float32 whatever the model's
+dtype, and a leaf of the same name elsewhere takes the model's.
+``reference_layout`` is its inverse, the port's parameters stacked back
+into the reference's tree.
 """
 
 from __future__ import annotations
@@ -15,72 +25,96 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.device import resolve_device
 
-from .layers import F32, ParamTree, _dtype
+from .layers import ParamTree
+from .model_zoo import init_fn
 from .transformer import n_dense_layers
 
 __all__ = ["params_from_reference", "reference_layout"]
 
-#: leaves the reference keeps in float32 whatever the model's dtype
-_F32_LEAVES = ("router",)
+#: the transformer's stacked keys, merged into ``layers`` in this order
+_TRANSFORMER_STACKS = ("dense_layers", "moe_layers")
+#: the other families' stacked keys, each kept as a list of layers
+_STACKS = {"hybrid": ("mamba_layers",), "ssm": ("m_stack",),
+           "audio": ("enc_layers", "dec_layers")}
 
 
-def _leaf(key: str, a, dtype, device) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
-    return t.to(device=device, dtype=F32 if key in _F32_LEAVES else dtype)
+def _transformer(cfg) -> bool:
+    return cfg.family not in _STACKS
 
 
-def _tree(tree: Dict[str, Any], dtype, device, index=None) -> Dict:
-    out = {}
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            out[key] = _tree(value, dtype, device, index)
-        else:
-            out[key] = _leaf(key, value if index is None else value[index],
-                             dtype, device)
-    return out
-
-
-def _stack_len(tree: Dict[str, Any]) -> int:
+def _stack_len(tree) -> int:
     for value in tree.values():
         return (_stack_len(value) if isinstance(value, dict)
                 else len(value))
     return 0
 
 
+def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {key: (_index(value, i) if isinstance(value, dict) else value[i])
+            for key, value in tree.items()}
+
+
+def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    return [_index(tree, i) for i in range(_stack_len(tree))]
+
+
+def _port_layout(cfg, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's tree regrouped into the port's layout (leaves
+    untouched)."""
+    if _transformer(cfg):
+        out = {k: v for k, v in tree.items() if k not in _TRANSFORMER_STACKS}
+        out["layers"] = [lp for key in _TRANSFORMER_STACKS if key in tree
+                         for lp in _unstack(tree[key])]
+        return out
+    stacks = _STACKS[cfg.family]
+    return {k: (_unstack(v) if k in stacks else v) for k, v in tree.items()}
+
+
+def _cast(spec, tree, device, path: str):
+    """``tree``'s numpy leaves as tensors with the dtype of ``spec``'s at
+    the same path; raises ``ValueError`` where the structures differ."""
+    if isinstance(spec, nn.ModuleList):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
+            n = len(tree) if isinstance(tree, (list, tuple)) else "no"
+            raise ValueError(f"{path}: {n} layers in the tree, "
+                             f"{len(spec)} in the model")
+        return [_cast(s, t, device, f"{path}[{i}]")
+                for i, (s, t) in enumerate(zip(spec, tree))]
+    if isinstance(spec, ParamTree):
+        if not isinstance(tree, dict) or sorted(tree) != sorted(spec.keys()):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path}: keys {got} in the tree, "
+                             f"{sorted(spec.keys())} in the model")
+        return {key: _cast(spec[key], tree[key], device, f"{path}/{key}")
+                for key in tree}
+    t = torch.from_numpy(np.array(tree, dtype=np.float32))
+    if tuple(t.shape) != tuple(spec.shape):
+        raise ValueError(f"{path}: shape {tuple(t.shape)} in the tree, "
+                         f"{tuple(spec.shape)} in the model")
+    return t.to(device=device, dtype=spec.dtype)
+
+
 def params_from_reference(cfg, tree: Dict[str, Any],
                           device="cuda") -> ParamTree:
-    """The port's parameters in ``cfg.dtype`` (the router in float32) on
-    ``device`` from the reference's tree of float32 numpy arrays: the
-    stacked ``dense_layers`` / ``moe_layers`` split into the per-layer
-    modules, in layer order."""
+    """The port's parameters on ``device`` from the reference's tree of
+    float32 numpy arrays: the stacked layers split into per-layer
+    modules, in layer order, each leaf in the dtype the port's init gives
+    it (``cfg.dtype``, or float32 where the reference keeps float32)."""
     dev = resolve_device(device)
-    dt = _dtype(cfg.dtype)
-    out: Dict[str, Any] = {}
-    for key, value in tree.items():
-        if key in ("dense_layers", "moe_layers"):
-            continue
-        out[key] = (_tree(value, dt, dev) if isinstance(value, dict)
-                    else _leaf(key, value, dt, dev))
-    layers: List[Dict] = []
-    for key in ("dense_layers", "moe_layers"):
-        if key in tree:
-            stack = tree[key]
-            layers += [_tree(stack, dt, dev, i)
-                       for i in range(_stack_len(stack))]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, "
-                         f"{cfg.n_layers} in {cfg.name}")
-    out["layers"] = layers
-    return ParamTree(out)
+    spec = init_fn(cfg)(None, cfg, "meta")
+    return ParamTree(_cast(spec, _port_layout(cfg, tree), dev, cfg.name))
 
 
-def _as_dict(module) -> Dict[str, Any]:
-    return {key: (_as_dict(module[key])
-                  if isinstance(module[key], ParamTree) else module[key].data)
-            for key in module.keys()}
+def _as_tree(module):
+    if isinstance(module, nn.ModuleList):
+        return [_as_tree(m) for m in module]
+    if isinstance(module, ParamTree):
+        return {key: _as_tree(module[key]) for key in module.keys()}
+    return module.data
 
 
 def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -92,15 +126,16 @@ def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 def reference_layout(cfg, params: ParamTree) -> Dict[str, Any]:
     """``params`` as the reference's tree of tensors: the per-layer
-    modules stacked into ``dense_layers`` and ``moe_layers`` (works on
-    ``"meta"`` parameters, ``Model.param_specs``)."""
-    out = {key: (_as_dict(params[key]) if isinstance(params[key], ParamTree)
-                 else params[key].data)
-           for key in params.keys() if key != "layers"}
-    layers = [_as_dict(lp) for lp in params["layers"]]
+    modules stacked along a leading axis (works on ``"meta"`` parameters,
+    ``Model.param_specs``)."""
+    tree = _as_tree(params)
+    if not _transformer(cfg):
+        stacks = _STACKS[cfg.family]
+        return {k: (_stack(v) if k in stacks else v) for k, v in tree.items()}
+    layers = tree.pop("layers")
     n_dense = n_dense_layers(cfg)
-    if layers[:n_dense]:
-        out["dense_layers"] = _stack(layers[:n_dense])
-    if layers[n_dense:]:
-        out["moe_layers"] = _stack(layers[n_dense:])
-    return out
+    for key, part in zip(_TRANSFORMER_STACKS,
+                         (layers[:n_dense], layers[n_dense:])):
+        if part:
+            tree[key] = _stack(part)
+    return tree

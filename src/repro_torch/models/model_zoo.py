@@ -1,5 +1,5 @@
-"""Unified model facade: build an assigned architecture from its config
-(port of ``repro.models.model_zoo``, the decoder-only transformer family).
+"""Unified model facade: build any assigned architecture from its config
+(port of ``repro.models.model_zoo``).
 
 ``build_model(cfg, device)`` returns a :class:`Model` whose methods run
 eagerly on ``device`` (the card unless told ``"cpu"``):
@@ -14,10 +14,11 @@ eagerly on ``device`` (the card unless told ``"cpu"``):
     for every model input of an assignment shape (the reference's
     ``jax.ShapeDtypeStruct``: no allocation)
 
-The ``dense``, ``vlm`` and ``moe`` families (with or without MLA) are
-ported; ``hybrid``, ``ssm`` and ``audio`` raise ``NotImplementedError``
-naming their ROADMAP.md item.  Modality frontends are STUBS per the
-assignment: ``input_specs`` provides precomputed patch embeddings.
+Every family is ported: ``dense``, ``vlm`` and ``moe`` (with or without
+MLA; :mod:`.transformer`), ``hybrid`` (zamba2) and ``ssm`` (the xLSTM
+stack; :mod:`.hybrid`) and ``audio`` (the encoder-decoder;
+:mod:`.encdec`).  Modality frontends are STUBS per the assignment:
+``input_specs`` provides precomputed patch and frame embeddings.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import resolve_device
 
+from . import encdec as encdec_mod
+from . import hybrid as hybrid_mod
 from . import transformer as tfm
 
 __all__ = ["Model", "build_model", "count_params_analytic"]
@@ -132,6 +135,10 @@ class Model:
         b, s = shape.global_batch, shape.seq_len
         i32, f32 = torch.int32, torch.float32
         if shape.kind == "train" or shape.kind == "prefill":
+            if cfg.family == "audio":
+                return {"features": _meta((b, s, cfg.frontend.feature_dim),
+                                          f32),
+                        "tokens": _meta((b, s), i32)}
             if cfg.family == "vlm":
                 npatch = cfg.frontend.n_positions
                 return {"tokens": _meta((b, s - npatch), i32),
@@ -149,7 +156,7 @@ class Model:
     def param_specs(self, rng=None) -> Params:
         """Shape-only parameters (``"meta"`` tensors)."""
         del rng
-        return tfm.init_params(None, self.cfg, "meta")
+        return init_fn(self.cfg)(None, self.cfg, "meta")
 
 
 def _generator(rng: Union[int, torch.Generator], device) -> torch.Generator:
@@ -158,26 +165,52 @@ def _generator(rng: Union[int, torch.Generator], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(rng))
 
 
+#: each family's (init, train_logits, prefill, decode_step, init_cache)
+#: functions; ``init_cache`` takes (cfg, batch, max_len, device)
+_FAMILIES = {
+    "transformer": (tfm.init_params, tfm.train_logits, tfm.prefill,
+                    tfm.decode_step, tfm.init_cache),
+    "hybrid": (hybrid_mod.init_zamba, hybrid_mod.zamba_train_logits,
+               hybrid_mod.zamba_prefill, hybrid_mod.zamba_decode_step,
+               hybrid_mod.zamba_init_cache),
+    "ssm": (hybrid_mod.init_xlstm_stack, hybrid_mod.xlstm_train_logits,
+            hybrid_mod.xlstm_prefill, hybrid_mod.xlstm_decode_step,
+            hybrid_mod.xlstm_init_cache),
+    # the cross K/V get max_len rows too, as the reference's facade does
+    "audio": (encdec_mod.init_encdec, encdec_mod.encdec_train_logits,
+              encdec_mod.encdec_prefill, encdec_mod.encdec_decode_step,
+              lambda cfg, b, m, device: encdec_mod.encdec_init_cache(
+                  cfg, b, m, m, device)),
+}
+
+
+def _functions(cfg: ArchConfig):
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        return _FAMILIES["transformer"]
+    if fam in _FAMILIES:
+        return _FAMILIES[fam]
+    raise ValueError(f"unknown family {fam!r}")
+
+
+def init_fn(cfg: ArchConfig) -> Callable:
+    """The family's parameter init: (generator, cfg, device) -> params."""
+    return _functions(cfg)[0]
+
+
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (``resolve_device``: raises
     without a card unless ``device="cpu"``)."""
-    fam = cfg.family
-    if fam in ("hybrid", "ssm", "audio"):
-        raise NotImplementedError(
-            f"the {fam!r} family ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md A.14)")
-    if fam not in ("dense", "vlm", "moe"):
-        raise ValueError(f"unknown family {fam!r}")
+    init, train, prefill, decode, cache = _functions(cfg)
     dev = resolve_device(device)
     return Model(
         cfg=cfg,
         device=dev,
-        init_params=lambda rng: tfm.init_params(_generator(rng, dev), cfg,
-                                                dev),
-        train_logits=lambda p, b: tfm.train_logits(p, cfg, b),
-        prefill=lambda p, b: tfm.prefill(p, cfg, b),
-        decode_step=lambda p, b, c: tfm.decode_step(p, cfg, b, c),
-        init_cache=lambda b, m, device=None: tfm.init_cache(
+        init_params=lambda rng: init(_generator(rng, dev), cfg, dev),
+        train_logits=lambda p, b: train(p, cfg, b),
+        prefill=lambda p, b: prefill(p, cfg, b),
+        decode_step=lambda p, b, c: decode(p, cfg, b, c),
+        init_cache=lambda b, m, device=None: cache(
             cfg, b, m, dev if device is None else device),
         decode_step_router=(
             (lambda p, b, c: tfm.decode_step_router(p, cfg, b, c))

@@ -32,9 +32,6 @@ from . import moe as moe_mod
 from .layers import (F32, ParamTree, _dtype, apply_ffn, dense_init,
                      embed_tokens, gelu, init_embedding, init_ffn,
                      init_rmsnorm, rms_norm, unembed)
-from .attention import valid_positions
-from .layers import rope_table
-from .mla import _write_row, write_index
 from .unroll import scan_or_unroll
 
 Params = Dict[str, Any]
@@ -207,17 +204,12 @@ def _ffn_or_moe(x, lp, cfg):
     return x + apply_ffn(h, lp["ffn"], cfg.act), None
 
 
-def _attn_layer_decode(x, lp, cfg, k_cache, v_cache, cache_len, positions,
-                       step):
+def _attn_layer_decode(x, lp, cfg, k_cache, v_cache, cache_len, step):
     """One transformer layer, one token.  Caches: (B,S,KV,hd), written in
     place at ``cache_len`` (clamped to the last row)."""
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = attn.qkv_project(h, lp["attn"], cfg, positions, step["rope"])
-    _write_row(k_cache, cache_len, k[:, 0], step["at"])
-    _write_row(v_cache, cache_len, v[:, 0], step["at"])
-    o = attn.decode_attention(q, k_cache, v_cache, cache_len + 1,
-                              step["valid"])
-    x = x + attn.out_project(o, lp["attn"])
+    x = x + attn.self_attention_decode(h, lp["attn"], cfg, k_cache, v_cache,
+                                       cache_len, step)
     return _ffn_or_moe(x, lp, cfg)
 
 
@@ -241,13 +233,10 @@ def _decode_step(params, cfg, batch: Dict, cache: Dict, with_router: bool):
     routers: List[torch.Tensor] = []
     mla = cfg.mla is not None
     int8 = mla and cfg.kv_cache_dtype == "int8"
-    # what every layer shares, made once: the rotation table of the
-    # positions, the (clamped) write index and the valid cache rows
-    rows = cache["latent" if mla else "k"].shape[2]
-    step = {"rope": rope_table(positions, cfg.mla.qk_rope_head_dim if mla
-                               else cfg.resolved_head_dim, cfg.rope_theta),
-            "at": write_index(cache_len, rows),
-            "valid": valid_positions(cache_len + 1, rows)}
+    step = attn.decode_tables(
+        cache_len, cache["latent" if mla else "k"].shape[2],
+        cfg.mla.qk_rope_head_dim if mla else cfg.resolved_head_dim,
+        cfg.rope_theta)
     for l, lp in enumerate(params["layers"]):
         if mla:
             x, top = _mla_layer_decode(
@@ -255,8 +244,7 @@ def _decode_step(params, cfg, batch: Dict, cache: Dict, with_router: bool):
                 positions, cache["latent_scale"][l] if int8 else None, step)
         else:
             x, top = _attn_layer_decode(x, lp, cfg, cache["k"][l],
-                                        cache["v"][l], cache_len, positions,
-                                        step)
+                                        cache["v"][l], cache_len, step)
         if top is not None:
             routers.append(top)
     cache = dict(cache, len=cache_len + 1)

@@ -670,8 +670,39 @@ def test_cuda_models_match_cpu(cuda_device, arch):
                                    atol=1e-4)
 
 
+#: the recurrent and encoder-decoder families
+FAMILY_ARCHS = ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-large-v2"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_models_match_cpu(cuda_device, arch):
+    """Each family's float32 smoke model on the card through
+    ``chip_smoke.family_run`` (train and prefill logits, the prefill's
+    cache, eight teacher-forced decode steps from ``init_cache`` or, for
+    the encoder-decoder, one from the prefill's cache, and the decode
+    cache) within 1e-4 of the host's CPU on the same parameters, the
+    argmax tokens equal."""
+    cs = chip_smoke()
+    card, params, host, h_params = _model_pair(arch, cuda_device)
+    batch = cs.model_inputs(card.cfg, 2, 64)
+    steps = None if card.cfg.family == "audio" else 8
+    got = cs.family_run(card, params, batch, steps)
+    want = cs.family_run(host, h_params, batch, steps)
+    pairs = [(got["full"], want["full"]), (got["last"], want["last"])]
+    pairs += list(zip(got["steps"], want["steps"]))
+    for key in ("cache", "decode_cache"):
+        pairs += [(x, y) for (_, x), (_, y) in zip(
+            cs.state_leaves(got[key]), cs.state_leaves(want[key]))]
+    for x, y in pairs:
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-4)
+    for x, y in zip(got["steps"], want["steps"]):
+        assert torch.equal(x.argmax(-1).cpu(), y.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "kimi-k2-1t-a32b"]
+                         + FAMILY_ARCHS)
 def test_cuda_model_engine_matches_cpu(cuda_device, arch):
     """``ServingEngine`` with a model (``kv="sharded"``; the MoE one with
     its expert tier) on the card and on the host's CPU: the same tokens,

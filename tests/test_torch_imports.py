@@ -2,9 +2,9 @@
 entry points default to the card and raise without one, the parts of
 the reference it does not have yet raise ``NotImplementedError`` naming
 the ROADMAP.md item that ports them (wide registries, tenants, dedup and
-the transformer models no longer do; the hybrid, ssm and audio model
-families still do), and ``chip_smoke.py`` exits non-zero without a card
-and names the phase that failed."""
+every model family no longer do; an explicit mesh still does), and
+``chip_smoke.py`` exits non-zero without a card and names the phase that
+failed."""
 
 import torch_parity  # noqa: F401
 
@@ -159,6 +159,15 @@ ENTRY_POINTS = {
         ["--requests", "1", "--max-new", "2"]
         + (["--device", kw["device"]] if kw else [])),
     "build_model": lambda **kw: build_model(get_smoke("qwen2.5-3b"), **kw),
+    "build_model hybrid": lambda **kw: build_model(get_smoke("zamba2-7b"),
+                                                   **kw),
+    "build_model ssm": lambda **kw: build_model(get_smoke("xlstm-1.3b"),
+                                                **kw),
+    "build_model audio": lambda **kw: build_model(
+        get_smoke("seamless-m4t-large-v2"), **kw),
+    "launch.serve recurrent model": lambda **kw: serve.main(
+        ["--arch", "xlstm-1.3b", "--requests", "1", "--max-new", "2"]
+        + (["--device", kw["device"]] if kw else [])),
     "params_from_reference": lambda **kw: params_from_reference(
         get_smoke("gemma-2b"), _reference_tree(), **kw),
     "case_moe real router": lambda **kw: case_moe(smoke=True,
@@ -202,14 +211,8 @@ def test_default_device_needs_a_card(name, monkeypatch, capsys):
 
 
 NOT_PORTED = {
-    "model": (lambda: build_model(get_smoke("zamba2-7b"), device="cpu"),
-              "A.14"),
     "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
              "A.8"),
-    "serve model": (lambda: serve.main(["--arch", "xlstm-1.3b", "--device",
-                                        "cpu"]), "A.14"),
-    "audio model": (lambda: build_model(get_smoke("seamless-m4t-large-v2"),
-                                        device="cpu"), "A.14"),
 }
 
 
@@ -1157,7 +1160,8 @@ def _smoke_models(monkeypatch, chip_smoke):
     """``model_config`` gives the smoke configurations, with the cuts the
     phases ask for (the full widths need the card)."""
     monkeypatch.setattr(chip_smoke, "model_config",
-                        lambda arch, **cut: get_smoke(arch).replace(**cut))
+                        lambda arch, **cut: chip_smoke.cut_config(
+                            get_smoke(arch), **cut))
 
 
 def test_chip_smoke_model_check_on_cpu(monkeypatch):
@@ -1170,6 +1174,15 @@ def test_chip_smoke_model_check_on_cpu(monkeypatch):
     _smoke_models(monkeypatch, chip_smoke)
     out = chip_smoke.phase_model_check(chip_smoke.Context())
     assert out["allow_tf32"] is False
+    for arch, c in chip_smoke.FAMILY_CHECK.items():
+        errs = out[arch]["max_abs_err"]
+        assert max(errs.values()) <= chip_smoke.MODEL_TRAIN_TOL, arch
+        assert out[arch]["config"]["decode_steps"] == c.get("steps", 1)
+        assert any(k.startswith("decode_cache ") for k in errs), arch
+    assert out["zamba2-7b"]["config"]["n_layers"] == 7
+    assert out["xlstm-1.3b"]["config"]["n_layers"] == 8
+    assert out["seamless-m4t-large-v2"]["config"]["cut"]["encdec"] == dict(
+        n_encoder_layers=2, n_decoder_layers=2)
     qwen, ds = out["qwen2.5-3b"], out["deepseek-v2-236b"]
     assert qwen["config"]["n_layers"] == 2
     assert max(qwen["max_abs_err"].values()) <= chip_smoke.MODEL_TRAIN_TOL
@@ -1186,9 +1199,9 @@ def test_chip_smoke_model_check_on_cpu(monkeypatch):
 
 
 def test_chip_smoke_model_serving_on_cpu(monkeypatch):
-    """``model_serving`` on the CPU with the smoke model: every request
-    completes, the page counters equal the ``model=None`` run's, the
-    sharded refreshes launch the mask and the gcd (held against their
+    """``model_serving`` on the CPU with each arch's smoke model: every
+    request completes, the page counters equal the ``model=None`` run's,
+    the sharded refreshes launch the mask and the gcd (held against their
     plain versions), and prefill steps and ticks are timed apart."""
     chip_smoke = _cpu_smoke(monkeypatch)
     _count_plain_launches(monkeypatch, chip_smoke.FLAT)
@@ -1196,30 +1209,41 @@ def test_chip_smoke_model_serving_on_cpu(monkeypatch):
     lines = []
     monkeypatch.setattr(chip_smoke, "emit", lines.append)
     out = chip_smoke.phase_model_serving(chip_smoke.Context())
-    c = chip_smoke.MODEL_SERVING
-    assert out["requests"] == c["requests"]
-    assert out["tokens"] == c["requests"] * c["max_new"]
-    assert out["decode_ticks"]["steps"] == 16
-    assert out["prefill_steps"]["steps"] == sum(
-        len(p) for p in chip_smoke.launcher_prompts(512, c["requests"],
-                                                    c["shared_prefix"]))
-    assert out["launches"]["divisibility_mask"] > 0
-    assert sorted(out["shapes_checked"]) == sorted(
-        k for k in chip_smoke.FLAT if out["launches"][k])
-    assert {ln["phase"] for ln in lines} == {"kernel_model_serving"}
-    split = out["sharded_time_split"]
-    assert split["launches_outside_kernel_calls"] == 0
-    assert out["page_stats"]["shared_prefix_pages"] > 0
+    assert [c["arch"] for c in chip_smoke.MODEL_SERVING] == list(out)
+    assert {out[a]["family"] for a in out} == {"dense", "hybrid", "ssm",
+                                               "audio"}
+    for c in chip_smoke.MODEL_SERVING:
+        got = out[c["arch"]]
+        assert got["requests"] == c["requests"]
+        assert got["tokens"] == c["requests"] * c["max_new"]
+        assert got["decode_ticks"]["steps"] == c["max_new"] * (
+            -(-c["requests"] // c["max_batch"]))
+        assert got["prefill_steps"]["steps"] == sum(
+            len(p) for p in chip_smoke.launcher_prompts(
+                512, c["requests"], c["shared_prefix"]))
+        assert got["launches"]["divisibility_mask"] > 0
+        assert sorted(got["shapes_checked"]) == sorted(
+            k for k in chip_smoke.FLAT if got["launches"][k])
+        split = got["sharded_time_split"]
+        assert split["launches_outside_kernel_calls"] == 0
+        # a shared page needs a prefix of a whole page (16 tokens)
+        assert (got["page_stats"]["shared_prefix_pages"] > 0) == (
+            c["shared_prefix"] >= 16)
+    assert {ln["phase"] for ln in lines} == {
+        f"kernel_model_serving_{c['arch']}" for c in chip_smoke.MODEL_SERVING}
+    assert "bf16_vs_f32_rel_err_2_layers" in out["qwen2.5-3b"]
 
 
 def test_chip_smoke_launcher_model_on_cpu(monkeypatch):
-    """``launcher_model`` on the CPU: the launcher with ``--arch
-    qwen2.5-3b`` serves its 16 requests through the engine and prints
+    """``launcher_model`` on the CPU: the launcher with ``--arch`` for
+    each family serves its 16 requests through the engine and prints
     ``LAUNCHER_ENGINE_KEYS``."""
     chip_smoke = _cpu_smoke(monkeypatch)
     out = chip_smoke.phase_launcher_model(chip_smoke.Context())
-    assert out["completed"] == 16 and out["front_end"] == "engine"
-    assert set(chip_smoke.LAUNCHER_ENGINE_KEYS) <= set(out)
+    assert list(out) == list(chip_smoke.LAUNCHER_ARCHS)
+    for got in out.values():
+        assert got["completed"] == 16 and got["front_end"] == "engine"
+        assert set(chip_smoke.LAUNCHER_ENGINE_KEYS) <= set(got)
 
 
 def test_chip_smoke_real_router_on_cpu(monkeypatch):

@@ -39,7 +39,6 @@ from repro_torch.models.convert import params_from_reference, reference_layout
 
 ARCHS = ["qwen2.5-3b", "gemma-2b", "qwen3-32b", "phi3-medium-14b",
          "phi-3-vision-4.2b", "kimi-k2-1t-a32b", "deepseek-v2-236b"]
-NOT_PORTED = ["zamba2-7b", "xlstm-1.3b", "seamless-m4t-large-v2"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, STEPS = 2, 64, 8
 
@@ -424,14 +423,6 @@ def _get(tree, path):
     for key in path:
         tree = tree[key]
     return tree
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_name_their_roadmap_item(arch):
-    """The ``hybrid``, ``ssm`` and ``audio`` families are not ported:
-    ``build_model`` raises naming ROADMAP.md A.14."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.14"):
-        build_model(configs.get_smoke(arch), device="cpu")
 
 
 def test_build_model_needs_a_card_by_default(monkeypatch):

@@ -5,8 +5,10 @@ the tests compare state, not only counters; :func:`state_arrays` reads an
 assigner and its registry as the arrays that
 ``repro_torch.core.state_from_arrays`` takes; :func:`kernel_inputs` makes
 the kernels' test inputs from a seed; :func:`chip_smoke` loads the smoke
-script, whose edge inputs the tests share.  (``tests/conftest.py`` makes
-the reference importable under JAX 0.9.0.)
+script, whose edge inputs the tests share; :func:`model_pair`,
+:func:`model_batches`, :func:`assert_trees_close` and :func:`serve_pair`
+hold both packages' models and engines on one set of parameters.
+(``tests/conftest.py`` makes the reference importable under JAX 0.9.0.)
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import numpy as np
 
 __all__ = ["registry_arrays", "assert_registries_equal", "kernel_inputs",
            "first_primes", "state_arrays", "assert_state_arrays_equal",
-           "BIG_PRIMES", "chip_smoke"]
+           "BIG_PRIMES", "chip_smoke", "model_pair", "model_batches",
+           "assert_trees_close", "greedy_pair", "serve_pair", "launcher_pair",
+           "TOL", "BF16_JIT", "BF16_TOL"]
 
 BIG_PRIMES = np.array([1_000_003, 1_000_033, 1_000_037, 1_000_039,
                        999_983, 999_979], dtype=np.int64)
@@ -135,3 +139,205 @@ def assert_state_arrays_equal(a, b) -> None:
             assert [list(x) for x in a[key]] == [list(x) for x in b[key]], key
         else:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+# --------------------------------------------------------------------------- #
+# the model zoo: both packages on one set of parameters                       #
+# --------------------------------------------------------------------------- #
+
+#: float32 parity of logits, caches and states
+TOL = dict(rtol=1e-4, atol=1e-4)
+#: the reference compiled without XLA's excess precision (its CPU compiler
+#: otherwise keeps some bfloat16 intermediates in float32), so both
+#: packages round where the code says
+BF16_JIT = dict(compiler_options={"xla_allow_excess_precision": False})
+#: bfloat16 logits: both packages' float32 matmuls sum in their own
+#: orders, so a value on a bfloat16 rounding edge may round to the
+#: neighbouring bfloat16 in one of them (one place, 2**-8 of the value)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+def _configs(arch: str, dtype: str, nested: tuple, replace: tuple):
+    """Both packages' smoke configurations of ``arch`` with ``replace``
+    ((field, value) pairs) and ``nested`` ((field, subfield, value):
+    a field of a nested config such as ``ssm``) applied."""
+    import dataclasses
+
+    from repro import configs as ref_configs
+    from repro_torch import configs
+
+    out = []
+    for pkg in (ref_configs, configs):
+        cfg = pkg.get_smoke(arch).replace(dtype=dtype, **dict(replace))
+        for field, sub, value in nested:
+            cfg = cfg.replace(**{field: dataclasses.replace(
+                getattr(cfg, field), **{sub: value})})
+        out.append(cfg)
+    return out
+
+
+def _np_tree(tree):
+    import jax
+
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def model_pair(arch: str, dtype: str = "float32", nested: tuple = (),
+               replace: tuple = ()):
+    """(reference model, its params, port model, the same params) of the
+    smoke configuration of ``arch`` (see :func:`_configs`).  In bfloat16
+    the reference's parameters are the float32 pair's cast leaf by leaf to
+    the dtypes of its bfloat16 init (float32 leaves stay float32)."""
+    import jax
+
+    from repro.models import build_model as ref_build_model
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_reference
+
+    rcfg, cfg = _configs(arch, dtype, nested, replace)
+    rm = ref_build_model(rcfg)
+    if dtype == "float32":
+        rp = rm.init_params(jax.random.PRNGKey(0))
+    else:
+        rp32 = model_pair(arch, "float32", nested, replace)[1]
+        specs = jax.eval_shape(rm.init_params, jax.random.PRNGKey(0))
+        rp = jax.tree.map(lambda a, s: a.astype(s.dtype), rp32, specs)
+    tm = build_model(cfg, device="cpu")
+    return rm, rp, tm, params_from_reference(cfg, _np_tree(rp), "cpu")
+
+
+def model_batches(cfg, b: int, s: int, seed: int = 0):
+    """The same batch for both packages, (jax dict, torch dict): tokens,
+    and the audio family's frame features (``S_enc = s``)."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrays = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        arrays["features"] = rng.normal(
+            size=(b, s, cfg.frontend.feature_dim)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def assert_trees_close(ref, port, path: str = "", **tol) -> None:
+    """Nested dicts (and lists) of arrays: the same keys, shapes and
+    dtypes, the values within ``tol`` (:data:`TOL` by default)."""
+    if isinstance(ref, dict):
+        assert sorted(ref) == sorted(port), path
+        for key in ref:
+            assert_trees_close(ref[key], port[key], f"{path}/{key}", **tol)
+        return
+    if isinstance(ref, (list, tuple)):
+        assert len(ref) == len(port), path
+        for i, (a, b) in enumerate(zip(ref, port)):
+            assert_trees_close(a, b, f"{path}[{i}]", **tol)
+        return
+    assert tuple(ref.shape) == tuple(port.shape), path
+    assert str(ref.dtype) == str(port.dtype).replace("torch.", ""), path
+    np.testing.assert_allclose(port.detach().float().numpy(),
+                               np.asarray(ref, np.float32),
+                               err_msg=path, **(tol or TOL))
+
+
+def greedy_pair(rm, rp, tm, tp, steps: int, b: int = 2, max_len: int = 16,
+                **jit):
+    """``steps`` greedy decode steps from ``init_cache`` in both packages
+    from tokens ``1..b``: yields (reference logits, port logits) each
+    step; the next token is the reference's argmax, which must equal the
+    port's."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    rdec = jax.jit(rm.decode_step, **jit)
+    rcache, tcache = rm.init_cache(b, max_len), tm.init_cache(b, max_len)
+    tok = np.arange(1, b + 1, dtype=np.int32).reshape(b, 1)
+    for _ in range(steps):
+        rl, rcache = rdec(rp, {"tokens": jnp.asarray(tok)}, rcache)
+        tl, tcache = tm.decode_step(tp, {"tokens": torch.from_numpy(tok)},
+                                    tcache)
+        yield rl, tl
+        tok = np.asarray(rl).argmax(-1).astype(np.int32).reshape(b, 1)
+        np.testing.assert_array_equal(
+            tok, tl.numpy().argmax(-1).reshape(b, 1))
+
+
+#: the serving engines' configuration for the model families (a small
+#: HBM, so pages evict)
+ENGINE_KW = dict(max_batch=3, max_seq=64, page_size=8, hbm_pages=10,
+                 prefetch_budget=2)
+
+
+def serving_prompts(vocab: int, n: int = 7, shared: int = 20):
+    """The launcher's recipe: a shared prefix, then 4-11 tokens each."""
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(0, vocab, size=shared)]
+    return [prefix + [int(t) for t in rng.integers(
+        0, vocab, size=int(rng.integers(4, 12)))] for _ in range(n)]
+
+
+def _serve(eng, prompts, max_new):
+    for prompt in prompts:
+        eng.submit(prompt, max_new_tokens=max_new)
+    return {r.req_id: list(r.generated) for r in eng.run_until_idle()}
+
+
+def serve_pair(arch: str, kv: str, max_new: int = 5):
+    """The same prompts through the reference's ``ServingEngine`` and the
+    port's on one set of the arch's smoke parameters, and through the
+    port's ``model=None`` engine: asserts every request completes with
+    the same tokens in both, every ``PageStats`` counter equal, and the
+    page counters (all but ``registry_scans``) equal to the ``model=None``
+    run's; returns the port's engine."""
+    import dataclasses
+
+    from repro.serving.engine import ServingEngine as RefEngine
+    from repro_torch.serving.engine import ServingEngine
+
+    rm, rp, tm, tp = model_pair(arch)
+    prompts = serving_prompts(tm.cfg.vocab_size)
+    ref = RefEngine(rm, rp, kv=kv, **ENGINE_KW)
+    eng = ServingEngine(tm, tp, kv=kv, device="cpu", **ENGINE_KW)
+    want, got = _serve(ref, prompts, max_new), _serve(eng, prompts, max_new)
+    assert len(got) == len(prompts) and got == want
+    assert all(len(toks) == max_new for toks in got.values())
+    stats = dataclasses.asdict(eng.pages.stats)
+    assert stats == dataclasses.asdict(ref.pages.stats)
+    assert stats["evictions"] > 0 and stats["shared_prefix_pages"] > 0
+    null = ServingEngine(None, None, kv="vec", device="cpu", **ENGINE_KW)
+    _serve(null, prompts, max_new)
+    stub = dataclasses.asdict(null.pages.stats)
+    stats.pop("registry_scans"), stub.pop("registry_scans")
+    assert stats == stub
+    assert eng.steps == ref.steps == null.steps
+    return eng
+
+
+#: the launcher's page keys, which paging alone decides
+LAUNCHER_PAGE_KEYS = ("completed", "decode_tokens", "peak_concurrency",
+                      "hbm_hit_rate", "prefetches", "prefetch_hits",
+                      "shared_prefix_pages", "registry_scans")
+
+
+def launcher_pair(arch: str, *extra: str):
+    """Both packages' launchers with ``--arch arch`` (the port's on the
+    CPU): the reference's keys and ``device``, every request completed,
+    the page counters equal; returns the port's output."""
+    import contextlib
+    import io
+
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = ref_serve.main(["--arch", arch, *extra])
+        got = serve.main(["--arch", arch, "--device", "cpu", *extra])
+    assert set(got) == set(want) | {"device"}
+    assert got["front_end"] == "engine" and got["device"] == "cpu"
+    assert ({k: got[k] for k in LAUNCHER_PAGE_KEYS}
+            == {k: want[k] for k in LAUNCHER_PAGE_KEYS})
+    return got
