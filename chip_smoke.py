@@ -117,6 +117,29 @@ runs also report where their wall time went, ``sharded_time_split``):
   launcher_model ``repro_torch.launch.serve --arch ARCH`` (its smoke
                  model) for qwen2.5-3b and the three families above: 16
                  requests complete, the reference launcher's keys;
+  train_check    training, card against the host's CPU on the same
+                 parameters: ``qwen2.5-3b`` at its published widths, two
+                 layers, float32, TF32 off, a B 2 x S 64 batch of the
+                 synthetic corpus: loss, ``ce``, ``grad_norm`` and every
+                 gradient leaf within 1e-3 of the leaf's largest
+                 magnitude; one AdamW, Adafactor and SGD-momentum update
+                 each from the host's gradients within 1e-5;
+                 ``accum_steps=2`` against 1 on the card;
+  train_full     the published ``qwen2.5-3b`` (36 layers, bfloat16,
+                 ``remat="full"``, AdamW) through ``init_train_state`` and
+                 ``make_train_step``: 6 steps of B 4 x S 256 on the
+                 launcher's schedule, every loss finite and the last two
+                 below the first; ms per step (CUDA events), tokens/s and
+                 the peak memory;
+  launcher_train ``repro_torch.launch.train`` with
+                 ``examples/train_lm.py``'s default arguments (the
+                 ``qwen2.5-3b`` smoke model at d 512 and 8 layers, 120
+                 steps) and ``--pfcs-data``: exit without error (its own
+                 loss assert), the reference launcher's keys; the
+                 checkpoint of step 60 restored (``verify=True``) and run
+                 to step 120 gives the launcher's last loss and its final
+                 train state bit for bit; a bfloat16 train state saved and
+                 restored bit for bit;
   obs            the observability layer: ``SlotMachine`` and
                  ``SlotOracle`` on ``tests/test_obs.py``'s golden spec
                  with ``kv="sharded"`` and ``"elastic"``, event streams
@@ -502,6 +525,32 @@ LAUNCHER_ENGINE_KEYS = ("front_end", "kv", "completed", "decode_tokens",
                         "tok_per_s", "mean_ttft_s", "peak_concurrency",
                         "hbm_hit_rate", "prefetches", "prefetch_hits",
                         "shared_prefix_pages", "registry_scans")
+#: ``train_check``: qwen2.5-3b at its published widths cut to two layers,
+#: float32 (0.78 B parameters: 3.1 GB, as much again for the gradients
+#: and twice that for AdamW's moments), a batch of the loader
+#: (``ShardedLoader(SyntheticCorpus(vocab_size=259), 2, 64)``: every id
+#: is a valid id of the full vocabulary), and the learning rate of the
+#: three optimizer updates
+TRAIN_CHECK = dict(arch="qwen2.5-3b", n_layers=2, batch=2, seq=64, lr=1e-3)
+#: ``train_check``'s tolerances, relative to each leaf's largest
+#: magnitude: the card's loss, metrics and gradients against the host's,
+#: and an optimizer update on both from the host's gradients
+TRAIN_TOL = 1e-3
+TRAIN_UPDATE_TOL = 1e-5
+#: ``train_full``: the published qwen2.5-3b (36 layers, bfloat16,
+#: remat "full", AdamW) on the launcher's schedule (warmup 1 of 6 steps)
+TRAIN_FULL = dict(arch="qwen2.5-3b", batch=4, seq=256, steps=6, lr=3e-4,
+                  warmup=1)
+#: ``examples/train_lm.py``'s default argument list (that script imports
+#: the reference's launcher, so the list is written out here;
+#: ``tests/test_torch_train_loop.py`` holds the two equal)
+TRAIN_LM_ARGS = ("--arch", "qwen2.5-3b", "--smoke", "--d-model", "512",
+                 "--n-layers", "8", "--steps", "120", "--batch", "4",
+                 "--seq", "128", "--lr", "1e-3", "--ckpt-every", "60")
+#: the reference training launcher's output keys
+LAUNCHER_TRAIN_KEYS = ("first_loss", "last_loss", "steps", "wall_s",
+                       "pfcs_shard_prefetches")
+TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt")
 #: limb counts of the limb kernels' synthetic checks (64 to 1024 bits)
 LIMB_WIDTHS = (2, 3, 8, 32)
 #: ``case_scale``'s published size (``benchmarks/cases.py``)
@@ -2313,6 +2362,309 @@ def phase_launcher_model(ctx: Context) -> dict:
     return out
 
 
+def leaf_rel_err(card: torch.Tensor, host: torch.Tensor) -> float:
+    """max |card - host| / max |host| of one leaf, computed on the card's
+    side (NaN where either side has one at a place the other has not;
+    places where both have one are left out)."""
+    card = card.detach().float()
+    host = host.detach().to(card.device).float()
+    nan = torch.isnan(host)
+    if not torch.equal(torch.isnan(card), nan):
+        return float("nan")
+    if host.numel() == 0:
+        return 0.0
+    diff = torch.where(nan, 0.0, card - host).abs().max()
+    scale = torch.where(nan, 0.0, host).abs().max()
+    return float(diff / scale.clamp(min=1e-30))
+
+
+def tree_rel_errs(card, host) -> dict:
+    """``leaf_rel_err`` of every leaf of two trees of the same structure,
+    by path."""
+    from repro_torch.training.tree import leaves_with_path, path_str
+
+    got, want = list(leaves_with_path(card)), list(leaves_with_path(host))
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError("the two trees differ in structure")
+    return {path_str(p): leaf_rel_err(c, h)
+            for (p, c), (_, h) in zip(got, want)}
+
+
+def held(label: str, errs: dict, tol: float) -> float:
+    """The largest of ``errs``; raises naming the worst leaf unless every
+    one is within ``tol`` (a NaN fails)."""
+    worst = max(errs, key=lambda k: (not errs[k] <= tol, errs[k]))
+    if not errs[worst] <= tol:
+        raise AssertionError(f"{label}: {worst} rel err {errs[worst]} over "
+                             f"{tol}")
+    return errs[worst]
+
+
+def loader_batch(batch: int, seq: int, step: int = 0, **kw):
+    """The tokens of ``step`` of the training loader on the synthetic
+    corpus (vocabulary 259)."""
+    from repro_torch.data.pipeline import ShardedLoader, SyntheticCorpus
+
+    loader = ShardedLoader(SyntheticCorpus(vocab_size=259), batch, seq, **kw)
+    return torch.from_numpy(loader.batch_at(step)["tokens"])
+
+
+def phase_train_check(ctx: Context) -> dict:
+    """``TRAIN_CHECK``: gradients and the three optimizers on the card
+    against the host's CPU on the same float32 parameters (TF32 off)."""
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import global_norm, make_optimizer
+    from repro_torch.training.train_loop import loss_and_grads, make_loss_fn
+    from repro_torch.training.tree import leaves, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 matmuls are on: float32 checks need "
+                             "them off")
+    c = TRAIN_CHECK
+    cfg = model_config(c["arch"], n_layers=c["n_layers"], dtype="float32")
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=DEVICE)
+    host = build_model(cfg, device="cpu")
+    params = card.init_params(0).requires_grad_(True)
+    h_params = params_copy(params, "cpu")
+    toks = loader_batch(c["batch"], c["seq"])
+    out, times = {}, {"init": time.perf_counter() - t0}
+    for side, model, p in (("card", card, params), ("host", host, h_params)):
+        t0 = time.perf_counter()
+        loss, parts, grads = loss_and_grads(
+            make_loss_fn(model), p, {"tokens": toks.to(model.device)})
+        out[side] = (loss, parts["ce"], global_norm(grads), grads)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        times[side] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (loss, ce, gnorm, grads), (h_loss, h_ce, h_gnorm, h_grads) = (
+        out["card"], out["host"])
+    errs = {"loss": leaf_rel_err(loss, h_loss), "ce": leaf_rel_err(ce, h_ce),
+            "grad_norm": leaf_rel_err(gnorm, h_gnorm)}
+    held("train_check metrics", errs, TRAIN_TOL)
+    grad_err = held("train_check gradients", tree_rel_errs(grads, h_grads),
+                    TRAIN_TOL)
+    # two microbatches of one against the whole batch, on the card
+    a_loss, _, a_grads = loss_and_grads(
+        make_loss_fn(card), params, {"tokens": toks.to(card.device)},
+        accum_steps=2)
+    accum = {"loss": leaf_rel_err(a_loss, loss),
+             "grads": held("accum_steps=2 against 1",
+                           tree_rel_errs(a_grads, grads), TRAIN_TOL)}
+    held("accum_steps=2 loss", {"loss": accum["loss"]}, TRAIN_TOL)
+    del grads, a_grads, out
+    times["compare_and_accum"] = time.perf_counter() - t0
+    t_updates = time.perf_counter()
+    updates = {}
+    lr = torch.tensor(c["lr"], dtype=torch.float32)
+    for name in ("adamw", "adafactor", "sgdm"):
+        opt = make_optimizer(name, cfg)
+        sides = []
+        for model, p in ((card, params), (host, h_params)):
+            q = params_copy(p, model.device)
+            st = opt.init(q)
+            g = tree_map(lambda x: x.to(model.device), h_grads)
+            t0 = time.perf_counter()
+            opt.update(g, q, st, lr.to(model.device))
+            if model.device.type == "cuda":
+                torch.cuda.synchronize()
+            sides.append((q, st, time.perf_counter() - t0))
+        (q, st, card_s), (h_q, h_st, host_s) = sides
+        updates[name] = {
+            "params": held(f"{name} update", tree_rel_errs(q, h_q),
+                           TRAIN_UPDATE_TOL),
+            "state": held(f"{name} state", tree_rel_errs(st, h_st),
+                          TRAIN_UPDATE_TOL),
+            "card_s": card_s, "host_s": host_s}
+        del q, st, h_q, h_st, sides
+    times["updates"] = time.perf_counter() - t_updates
+    n = sum(t.numel() for t in leaves(params))
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else None)
+    del card, host, params, h_params, h_grads
+    free_card()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "heads": [cfg.n_heads, cfg.n_kv_heads],
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                       "batch": c["batch"], "seq": c["seq"]},
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "params": n, "loss": float(loss), "host_loss": float(h_loss),
+            "rel_err": {**errs, "grads": grad_err}, "accum": accum,
+            "updates": updates, "seconds_by_part": times,
+            "peak_gb": peak}
+
+
+class StepTimer:
+    """CUDA events around each step on the card (the host's clock on the
+    CPU): ms per step."""
+
+    def __init__(self):
+        self.cuda = torch.cuda.is_available() and DEVICE == "cuda"
+        self.ms = []
+
+    @contextlib.contextmanager
+    def step(self):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def phase_train_full(ctx: Context) -> dict:
+    """``TRAIN_FULL``: the published qwen2.5-3b taking AdamW steps."""
+    from repro_torch.models import build_model
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    c = TRAIN_FULL
+    cfg = model_config(c["arch"])
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE)
+    state = init_train_state(model, 0)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in leaves(state)) / 1e9
+    step = make_train_step(model, lr=c["lr"], warmup=c["warmup"],
+                           total_steps=c["steps"])
+    timer = StepTimer()
+    losses, gnorms, lrs = [], [], []
+    for i in range(c["steps"]):
+        batch = {"tokens": loader_batch(c["batch"], c["seq"], i).to(
+            model.device)}
+        with timer.step():
+            state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else None)
+    n = sum(t.numel() for t in leaves(state.params))
+    del model, state
+    free_card()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_full: a loss is not finite: {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"train_full: the last two losses are not "
+                             f"below the first: {losses}")
+    ms = float(np.median(timer.ms[1:]))
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                       "remat": cfg.remat, "optimizer": cfg.optimizer,
+                       **c},
+            "params": n, "state_gb": state_gb, "init_s": init_s,
+            "losses": losses, "grad_norms": gnorms, "lrs": lrs,
+            "step_ms": timer.ms, "ms_per_step": ms,
+            "tokens_per_s": c["batch"] * c["seq"] / (ms / 1e3),
+            "peak_gb": peak}
+
+
+def train_states_equal(a, b) -> bool:
+    """Every leaf of two train states equal bit for bit."""
+    from repro_torch.training.tree import leaves
+
+    return all(x.dtype == y.dtype and torch.equal(
+        x.detach().view(torch.int16) if x.dtype == torch.bfloat16 else x,
+        y.detach().view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        for x, y in zip(leaves(a), leaves(b)))
+
+
+def phase_launcher_train(ctx: Context) -> dict:
+    """``python -m repro_torch.launch.train`` with ``TRAIN_LM_ARGS`` and
+    ``--pfcs-data`` (called in this process, as the other launcher phases
+    are), then its checkpoints: step 60 resumed to 120 against the
+    launcher's end, and a bfloat16 state's round trip."""
+    import json as _json
+    import shutil
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    argv = list(TRAIN_LM_ARGS) + ["--pfcs-data", "--ckpt-dir", TRAIN_CKPT,
+                                  "--device", DEVICE]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = train.main(argv)
+    launcher_s = time.perf_counter() - t0
+    printed = _json.loads(buf.getvalue().strip().splitlines()[-1])
+    missing = [k for k in LAUNCHER_TRAIN_KEYS if k not in got]
+    if missing or printed != got:
+        raise AssertionError(f"launcher_train: {got} (missing {missing})")
+    def arg(flag):
+        return TRAIN_LM_ARGS[TRAIN_LM_ARGS.index(flag) + 1]
+
+    steps, every = int(arg("--steps")), int(arg("--ckpt-every"))
+    cfg = get_smoke(arg("--arch")).replace(
+        d_model=int(arg("--d-model")), n_layers=int(arg("--n-layers")),
+        vocab_size=259)
+    mgr = CheckpointManager(os.path.join(TRAIN_CKPT, cfg.name))
+    if mgr.all_steps() != [every, steps]:
+        raise AssertionError(f"launcher_train: checkpoints {mgr.all_steps()}")
+    model = build_model(cfg, device=DEVICE)
+    step_fn = make_train_step(model, lr=float(arg("--lr")),
+                              total_steps=steps, warmup=max(1, steps // 10))
+    t0 = time.perf_counter()
+    state = mgr.restore(init_train_state(model, 1), step=every, verify=True)
+    for i in range(every, steps):
+        batch = {"tokens": loader_batch(int(arg("--batch")),
+                                        int(arg("--seq")), i).to(
+                                            model.device)}
+        state, m = step_fn(state, batch)
+    resumed_loss = float(m["loss"])
+    end = mgr.restore(init_train_state(model, 2), step=steps, verify=True)
+    resume_s = time.perf_counter() - t0
+    if resumed_loss != got["last_loss"] or not train_states_equal(state,
+                                                                  end):
+        raise AssertionError(
+            f"launcher_train: resumed from step {every}, last loss "
+            f"{resumed_loss} against {got['last_loss']}, states equal "
+            f"{train_states_equal(state, end)}")
+    # a bfloat16 train state (after one step: moments and parameters
+    # moved) saved and restored into another one
+    m16 = build_model(cfg.replace(dtype="bfloat16"), device=DEVICE)
+    s16 = init_train_state(m16, 3)
+    make_train_step(m16, lr=1e-3, warmup=0, total_steps=10)(
+        s16, {"tokens": loader_batch(4, 128).to(m16.device)})
+    mgr16 = CheckpointManager(os.path.join(TRAIN_CKPT, "bfloat16"))
+    mgr16.save(1, s16)
+    other = mgr16.restore(init_train_state(m16, 4), verify=True)
+    with open(os.path.join(TRAIN_CKPT, "bfloat16", "step_00000001",
+                           "manifest.json")) as f:
+        dtypes = sorted({v["dtype"] for v in
+                         _json.load(f)["leaves"].values()})
+    if not train_states_equal(s16, other) or "bfloat16" not in dtypes:
+        raise AssertionError(f"launcher_train: the bfloat16 state did not "
+                             f"round-trip ({dtypes})")
+    del model, state, end, m16, s16, other
+    free_card()
+    return {"launcher": got, "launcher_s": launcher_s, "resumed_from": every,
+            "resumed_loss": resumed_loss, "resume_s": resume_s,
+            "bf16_manifest_dtypes": dtypes,
+            "deterministic_algorithms":
+                torch.are_deterministic_algorithms_enabled()}
+
+
 #: ``tests/test_obs.py``'s golden arrival spec (seed 5, 10 requests at
 #: rate 1.2, prompts under 16 tokens from a shared pool of 8, up to 5 new
 #: tokens) and its inertness sweep's (seed 11, 18 requests)
@@ -3572,6 +3924,9 @@ PHASES = [
     ("model_check", phase_model_check),
     ("model_serving", phase_model_serving),
     ("launcher_model", phase_launcher_model),
+    ("train_check", phase_train_check),
+    ("train_full", phase_train_full),
+    ("launcher_train", phase_launcher_train),
     ("obs", phase_obs),
     ("tenancy", phase_tenancy),
     ("dedup", phase_dedup),

@@ -1,1 +1,1 @@
-"""Launchers (``serve.py``)."""
+"""Launchers (``serve.py``, ``train.py``)."""

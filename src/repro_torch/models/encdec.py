@@ -6,7 +6,9 @@ embeddings (the speech frontend is a stub — ``input_specs`` provides
 precomputed fbank-stack features).  Decoder: causal self-attention +
 cross-attention over encoder output.  The reference scans both stacks;
 the port keeps one :class:`~repro_torch.models.layers.ParamTree` per
-layer in ``enc_layers`` / ``dec_layers`` and loops.
+layer in ``enc_layers`` / ``dec_layers`` and loops.  Unless ``cfg.remat``
+is ``"none"``, each layer of both stacks is recomputed in the backward
+pass (``layers.remat``).
 
 The decode cache holds the decoder's self-attention K/V (written in place
 at ``len``) and the static cross K/V of ``enc_len`` rows, which a decode
@@ -24,8 +26,8 @@ import torch
 from . import attention as attn
 from .hybrid import _aux
 from .layers import (ParamTree, _dtype, apply_ffn, dense_init, embed_tokens,
-                     init_embedding, init_ffn, init_rmsnorm, mm, rms_norm,
-                     unembed)
+                     init_embedding, init_ffn, init_rmsnorm, mm, remat,
+                     rms_norm, unembed)
 
 Params = Dict[str, Any]
 
@@ -74,18 +76,23 @@ def _positions(n: int, device) -> torch.Tensor:
     return torch.arange(n, device=device)[None, :]
 
 
+def _enc_layer(x, lp, cfg, positions):
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(h, lp["attn"], cfg, positions)
+    o = attn.attention_chunked(q, k, v, chunk=cfg.attn_chunk,
+                               causal=False, unroll=cfg.unroll)
+    x = x + attn.out_project(o, lp["attn"])
+    h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+    return x + apply_ffn(h, lp["ffn"], cfg.act)
+
+
 def encode(params, cfg, features: torch.Tensor) -> torch.Tensor:
     """features: (B, S_enc, feat) -> (B, S_enc, D)."""
     x = mm(features, params["frontend_proj"]).to(_dtype(cfg.dtype))
     positions = _positions(x.shape[1], x.device)
+    body = remat(_enc_layer, cfg, ("full", "dots"))
     for lp in params["enc_layers"]:
-        h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(h, lp["attn"], cfg, positions)
-        o = attn.attention_chunked(q, k, v, chunk=cfg.attn_chunk,
-                                   causal=False, unroll=cfg.unroll)
-        x = x + attn.out_project(o, lp["attn"])
-        h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
-        x = x + apply_ffn(h, lp["ffn"], cfg.act)
+        x = body(x, lp, cfg, positions)
     return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -111,9 +118,10 @@ def _decoder(params, cfg, batch):
     enc_out = encode(params, cfg, batch["features"])
     x = embed_tokens(batch["tokens"], params["embed"])
     positions = _positions(x.shape[1], x.device)
+    body = remat(_dec_layer_train, cfg, ("full", "dots"))
     kvs = []
     for lp in params["dec_layers"]:
-        x, kv = _dec_layer_train(x, lp, cfg, enc_out, positions)
+        x, kv = body(x, lp, cfg, enc_out, positions)
         kvs.append(kv)
     return rms_norm(x, params["ln_f"], cfg.norm_eps), kvs
 

@@ -9,6 +9,10 @@ on the residual stream.  Each *application* keeps its own KV cache.
 xlstm layout: every ``slstm_every``-th block is an sLSTM; the rest are
 mLSTM.
 
+``cfg.remat == "full"`` recomputes each Mamba-2 layer and each mLSTM
+block in the backward pass (``layers.remat``), as the reference
+checkpoints those scan bodies only.
+
 The reference stacks the Mamba layers (``mamba_layers``) and the mLSTM
 blocks (``m_stack``) along a leading axis and scans them; the port keeps
 one :class:`~repro_torch.models.layers.ParamTree` per layer in a list
@@ -34,7 +38,7 @@ from . import ssm as ssm_mod
 from . import xlstm as xl
 from .layers import (F32, ParamTree, _dtype, apply_ffn, dense_init,
                      embed_tokens, init_embedding, init_ffn, init_rmsnorm,
-                     rms_norm, unembed)
+                     remat, rms_norm, unembed)
 
 Params = Dict[str, Any]
 
@@ -93,18 +97,23 @@ def _shared_block_train(x, sp, cfg, positions):
     return x + apply_ffn(h, sp["ffn"], cfg.act), (k, v)
 
 
+def _mamba_body(x, lp, cfg):
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    return x + ssm_mod.mamba2_block_train(h, lp["mix"], cfg)
+
+
 def _zamba_forward(params, cfg, tokens):
     """Embed, the Mamba runs with the shared block after each full group,
     the final norm.  Returns (x (B,S,D), the applications' k and v)."""
     x = embed_tokens(tokens, params["embed"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     layers = params["mamba_layers"]
+    body = remat(_mamba_body, cfg, ("full",))
     kv: List[Tuple[torch.Tensor, torch.Tensor]] = []
     off = 0
     for gi, gsize in enumerate(_zamba_groups(cfg)):
         for lp in layers[off:off + gsize]:
-            h = rms_norm(x, lp["ln"], cfg.norm_eps)
-            x = x + ssm_mod.mamba2_block_train(h, lp["mix"], cfg)
+            x = body(x, lp, cfg)
         off += gsize
         if gsize == cfg.shared_attn_every:  # full group -> shared attn
             sp = params["shared_blocks"][gi % cfg.n_shared_attn_blocks]
@@ -228,14 +237,19 @@ def init_xlstm_stack(gen, cfg, device) -> ParamTree:
     })
 
 
+def _mlstm_body(x, lp, cfg):
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    return x + xl.mlstm_block_train(h, lp["cell"], cfg)
+
+
 def xlstm_train_logits(params, cfg, batch):
     x = embed_tokens(batch["tokens"], params["embed"])
+    m_body = remat(_mlstm_body, cfg, ("full",))
     m_off, s_off = 0, 0
     for kind, run in _xlstm_runs(cfg):
         if kind == "m":
             for lp in params["m_stack"][m_off:m_off + run]:
-                h = rms_norm(x, lp["ln"], cfg.norm_eps)
-                x = x + xl.mlstm_block_train(h, lp["cell"], cfg)
+                x = m_body(x, lp, cfg)
             m_off += run
         else:
             sp = params["s_blocks"][s_off]

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 Params = Dict[str, Any]
@@ -38,9 +39,12 @@ def _dtype(name: str) -> torch.dtype:
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each dict becomes a child
     ``ParamTree``, each list an ``nn.ModuleList`` of them, each tensor a
-    parameter that asks for no gradient (the port runs forwards only).
-    ``tree[key]`` and ``key in tree`` read it as the reference reads its
-    dict pytree."""
+    parameter that asks for no gradient, so that serving, which runs
+    outside ``torch.no_grad``, builds no autograd graph.  A train state's
+    parameters ask for gradients: ``init_train_state``
+    (``repro_torch.training.train_loop``) turns them on with
+    ``requires_grad_(True)``.  ``tree[key]`` and ``key in tree`` read it
+    as the reference reads its dict pytree."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -62,6 +66,19 @@ class ParamTree(nn.Module):
 
     def keys(self):
         return list(self._parameters) + list(self._modules)
+
+
+def remat(fn, cfg, policies=("full", "dots")):
+    """``fn`` (a layer body) recomputed in the backward pass when
+    ``cfg.remat`` is one of ``policies`` (``jax.checkpoint`` in the
+    reference): ``torch.utils.checkpoint.checkpoint`` without reentry,
+    which saves the body's inputs only.  ``"dots"`` (the reference saves
+    the matmuls' outputs without batch dimensions) saves nothing more in
+    the port: it recomputes as ``"full"`` does."""
+    if cfg.remat not in policies:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
 
 
 # --------------------------------------------------------------------------- #

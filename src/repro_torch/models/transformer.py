@@ -8,16 +8,18 @@ MoE layers, in layer order) and loops over them.  The decode cache keeps
 the reference's layout, one tensor stacked over layers per entry.
 
 Three entry points per model:
-  * ``train_logits``  — full-sequence causal forward (a forward only: the
-                        loss and the optimizer are ROADMAP.md A.15)
+  * ``train_logits``  — full-sequence causal forward, differentiable (the
+                        loss and the optimizer: ``repro_torch.training``)
   * ``prefill``       — forward + KV-cache materialization, last logits
   * ``decode_step``   — one token against the stacked KV cache
 
 VLM ('vlm' family): precomputed patch embeddings are projected and
 prepended to the token embeddings; loss masks the image positions.
 
-The config's ``remat`` policy has no effect: it trades memory for
-recomputation in a backward pass, and the port runs forwards only.
+The config's ``remat`` policy applies to each layer body of the train
+forward (``layers.remat``): ``"none"`` keeps every activation for the
+backward pass, ``"full"`` and ``"dots"`` keep each layer's input only and
+recompute the body (``"dots"`` saves nothing more in the port).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from .layers import (F32, ParamTree, _dtype, apply_ffn, dense_init,
                      embed_tokens, gelu, init_embedding, init_ffn,
-                     init_rmsnorm, rms_norm, unembed)
+                     init_rmsnorm, remat, rms_norm, unembed)
 from .unroll import scan_or_unroll
 
 Params = Dict[str, Any]
@@ -132,8 +134,9 @@ def _embed_inputs(params, cfg, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 def _run_stack(x, params, cfg, positions):
     """The layers in order.  Returns (x, total_aux_loss)."""
     aux_total = torch.zeros((), dtype=F32, device=x.device)
+    body = remat(_layer_train, cfg)
     for lp in params["layers"]:
-        x, a = _layer_train(x, lp, cfg, positions)
+        x, a = body(x, lp, cfg, positions)
         if a is not None:
             aux_total = aux_total + a
     return x, aux_total

@@ -1,3 +1,20 @@
-"""Training-side pieces of the port.  Only ``elastic`` is ported so far: the
-fleet planner, heartbeats and straggler monitor that
-``repro_torch.serving.elastic`` drives (the rest is ROADMAP.md A.15)."""
+"""Training on one card (port of ``repro.training``): the optimizers
+(AdamW, Adafactor, SGD-momentum) with the cosine schedule and global-norm
+clipping, the train step with microbatching, the checkpoint manager,
+error-feedback gradient compression, and ``elastic`` (the fleet planner,
+heartbeats and straggler monitor, which ``repro_torch.serving.elastic``
+also drives).  Sharding the train state across cards is ROADMAP.md A.8."""
+
+from .checkpoint import CheckpointManager
+from .optimizer import (OPTIMIZERS, Optimizer, adafactor, adamw,
+                        clip_by_global_norm, cosine_schedule, global_norm,
+                        make_optimizer, sgdm)
+from .train_loop import (TrainState, abstract_train_state, cross_entropy,
+                         init_train_state, loss_and_grads, make_loss_fn,
+                         make_train_step)
+
+__all__ = ["CheckpointManager", "OPTIMIZERS", "Optimizer", "adafactor",
+           "adamw", "clip_by_global_norm", "cosine_schedule", "global_norm",
+           "make_optimizer", "sgdm", "TrainState", "abstract_train_state",
+           "cross_entropy", "init_train_state", "loss_and_grads",
+           "make_loss_fn", "make_train_step"]

@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel (flat and multi-limb) against
 its plain PyTorch version on the same card inputs, the ``ops`` wrappers
-and the sharded serving path, narrow and wide, on ``"cuda"`` against
-``"cpu"``.  Every test is marked
+and the sharded serving path, narrow and wide, the models and a train
+step of each family on ``"cuda"`` against ``"cpu"``.  Every test is marked
 ``gpu`` and skips when CUDA is absent; on a card run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``
 (this file imports no JAX, so it runs where only the port is
@@ -741,3 +741,65 @@ def test_cuda_int8_mla_cache_matches_cpu(cuda_device):
         torch.testing.assert_close(lc.cpu(), lh, rtol=1e-3, atol=1e-3)
     diff = (cc["latent"].cpu().int() - hc["latent"].int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+# --------------------------------------------------------------------------- #
+# training: a train step on the card against the host's CPU                   #
+# --------------------------------------------------------------------------- #
+
+#: one smoke arch of each family (dense, VLM, MoE, MLA + MoE, hybrid,
+#: recurrent, encoder-decoder)
+TRAIN_ARCHS = ["qwen2.5-3b", "phi-3-vision-4.2b", "kimi-k2-1t-a32b",
+               "deepseek-v2-236b"] + FAMILY_ARCHS
+#: (arch, SSD chunk or None for the smoke one): zamba2 also with chunks of
+#: 4, where its gradients are finite (its smoke ones hold NaN: ROADMAP.md
+#: queue C item 6)
+TRAIN_CASES = ([pytest.param(a, None, id=a) for a in TRAIN_ARCHS]
+               + [pytest.param("zamba2-7b", 4, id="zamba2-7b-chunk4")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch, chunk", TRAIN_CASES)
+def test_cuda_train_step_matches_cpu(cuda_device, arch, chunk):
+    """Each family's float32 smoke model: the loss and every gradient leaf
+    on the card within 1e-4 of the host's CPU on the same parameters
+    (relative to the leaf's largest magnitude; zamba2's smoke NaN at the
+    same places, every gradient finite elsewhere), then one train step
+    each: metrics within 1e-4, parameters within two learning rates
+    (AdamW's first update is about ``lr * sign(g)``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 loss_and_grads,
+                                                 make_loss_fn,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves, tree_map
+
+    cs = chip_smoke()
+    ssm = get_smoke(arch).ssm
+    card, _, host, _ = _model_pair(arch, cuda_device, **(
+        {} if chunk is None else
+        {"ssm": dataclasses.replace(ssm, chunk_size=chunk)}))
+    state = init_train_state(card, 0)
+    h_state = type(state)(cs.params_copy(state.params, "cpu"),
+                          tree_map(lambda t: t.cpu(), state.opt_state),
+                          state.step.cpu())
+    batch = (cs.model_inputs(card.cfg, 2, 64) if card.cfg.family == "audio"
+             else _model_batch(card.cfg))
+    got = loss_and_grads(make_loss_fn(card), state.params,
+                         _on(batch, "cuda"))
+    want = loss_and_grads(make_loss_fn(host), h_state.params, batch)
+    assert cs.leaf_rel_err(got[0], want[0]) <= 1e-4
+    cs.held(arch, cs.tree_rel_errs(got[2], want[2]), 1e-4)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(got[2]))
+    assert finite == (arch != "zamba2-7b" or chunk is not None), arch
+    kw = dict(lr=1e-3, warmup=0, total_steps=10)
+    _, m = make_train_step(card, **kw)(state, _on(batch, "cuda"))
+    _, hm = make_train_step(host, **kw)(h_state, batch)
+    for key in ("loss", "ce", "aux_loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m[key].cpu(), hm[key], rtol=1e-4,
+                                   atol=1e-4, equal_nan=True)
+    for a, b in zip(leaves(state.params), leaves(h_state.params)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=2.1e-3, equal_nan=True)

@@ -76,13 +76,17 @@ models = {"repro_torch.models." + m for m in (
     "model_zoo", "convert")} | {"repro_torch.configs.base",
                                 "repro_torch.configs.qwen2_5_3b"}
 assert models <= set(names), sorted(models - set(names))
+training = {"repro_torch.training." + m for m in (
+    "optimizer", "compression", "train_loop", "checkpoint", "tree",
+    "elastic")} | {"repro_torch.data.pipeline", "repro_torch.launch.train"}
+assert training <= set(names), sorted(training - set(names))
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     """Every ``repro_torch`` module and ``chip_smoke`` import in a process
-    where ``import jax`` and ``import repro`` raise, the trace engine's
-    and the model zoo's modules among them."""
+    where ``import jax`` and ``import repro`` raise, the trace engine's,
+    the model zoo's and the training modules among them."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -7,7 +7,9 @@ assigner and its registry as the arrays that
 the kernels' test inputs from a seed; :func:`chip_smoke` loads the smoke
 script, whose edge inputs the tests share; :func:`model_pair`,
 :func:`model_batches`, :func:`assert_trees_close` and :func:`serve_pair`
-hold both packages' models and engines on one set of parameters.
+hold both packages' models and engines on one set of parameters;
+:func:`train_pair`, :func:`train_batches`, :func:`clone_state` and
+:func:`assert_leaves_rel` their train states.
 (``tests/conftest.py`` makes the reference importable under JAX 0.9.0.)
 """
 
@@ -19,12 +21,16 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
+import pytest
 
 __all__ = ["registry_arrays", "assert_registries_equal", "kernel_inputs",
            "first_primes", "state_arrays", "assert_state_arrays_equal",
            "BIG_PRIMES", "chip_smoke", "model_pair", "model_batches",
            "assert_trees_close", "greedy_pair", "serve_pair", "launcher_pair",
-           "TOL", "BF16_JIT", "BF16_TOL"]
+           "TOL", "BF16_JIT", "BF16_TOL", "clone_state", "train_batches",
+           "train_pair", "port_layout_np", "assert_leaves_rel", "LR",
+           "ref_step_and_grads", "assert_train_metrics",
+           "assert_params_near", "check_train_step", "one_torch_thread"]
 
 BIG_PRIMES = np.array([1_000_003, 1_000_033, 1_000_037, 1_000_039,
                        999_983, 999_979], dtype=np.int64)
@@ -341,3 +347,192 @@ def launcher_pair(arch: str, *extra: str):
     assert ({k: got[k] for k in LAUNCHER_PAGE_KEYS}
             == {k: want[k] for k in LAUNCHER_PAGE_KEYS})
     return got
+
+
+# --------------------------------------------------------------------------- #
+# training: both packages' train states on one set of values                  #
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the module that imports this fixture:
+    the smoke shapes gain nothing from more, and the suite's workers
+    share the cores (eight threads in each of six workers make a small
+    train step tens of times slower)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def clone_state(state):
+    """A copy of the port's ``TrainState``, whose train step updates its
+    argument in place."""
+    import copy
+
+    from repro_torch.training.tree import tree_map
+
+    return type(state)(copy.deepcopy(state.params),
+                       tree_map(lambda t: t.clone(), state.opt_state),
+                       state.step.clone())
+
+
+def train_batches(cfg, b: int = 2, s: int = 64, seed: int = 0):
+    """``tests/test_models.py``'s batch of ``cfg``'s family, (jax dict,
+    torch dict): tokens, the audio family's frame features, the VLM's
+    patches (``s`` positions in all)."""
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        arrays = {"features": rng.normal(
+                      size=(b, s, cfg.frontend.feature_dim)).astype(
+                          np.float32),
+                  "tokens": rng.integers(0, cfg.vocab_size, size=(b, s))
+                  .astype(np.int32)}
+    elif cfg.family == "vlm":
+        n = cfg.frontend.n_positions
+        arrays = {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s - n))
+                  .astype(np.int32),
+                  "patches": rng.normal(
+                      size=(b, n, cfg.frontend.feature_dim)).astype(
+                          np.float32)}
+    else:
+        arrays = {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s))
+                  .astype(np.int32)}
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def train_pair(arch: str, optimizer: str = "adamw", dtype: str = "float32",
+               replace: tuple = (), ref_state=None, nested: tuple = ()):
+    """(reference model, its ``TrainState``, port model, the port's
+    ``TrainState`` carried across by ``train_state_from_reference``):
+    the reference's state is ``ref_state`` or a fresh one on
+    :func:`model_pair`'s parameters (``optimizer``'s init, step 0)."""
+    import jax.numpy as jnp
+
+    from repro.training.optimizer import make_optimizer
+    from repro.training.train_loop import TrainState
+    from repro_torch.models.convert import train_state_from_reference
+
+    rm, rp, tm, _ = model_pair(arch, dtype, nested, replace)
+    if ref_state is None:
+        ref_state = TrainState(rp, make_optimizer(optimizer).init(rp),
+                               jnp.zeros((), jnp.int32))
+    port = train_state_from_reference(
+        tm.cfg, _np_tree(ref_state.params), _np_tree(ref_state.opt_state),
+        int(ref_state.step), optimizer, "cpu")
+    return rm, ref_state, tm, port
+
+
+def port_layout_np(cfg, tree):
+    """A reference tree (jax arrays) as float32 numpy in the port's
+    per-layer layout."""
+    from repro_torch.models.convert import _port_layout
+
+    return _port_layout(cfg, _np_tree(tree))
+
+
+def assert_leaves_rel(ref, port, tol: float, path: str = "") -> None:
+    """Every leaf of ``port`` (tensors) within ``tol`` times the largest
+    magnitude of the leaf at the same place of ``ref`` (numpy, the same
+    structure) of it; the same keys and shapes, and NaN at the same
+    places (zamba2's gradients, ROADMAP.md queue C item 6)."""
+    from repro_torch.training.tree import leaves_with_path
+
+    got = list(leaves_with_path(port))
+    want = list(leaves_with_path(ref))
+    assert [p for p, _ in got] == [p for p, _ in want], path
+    for (p, t), (_, a) in zip(got, want):
+        a = np.asarray(a, np.float32)
+        b = t.detach().float().numpy()
+        assert a.shape == b.shape, (path, p)
+        nan = np.isnan(a)
+        np.testing.assert_array_equal(np.isnan(b), nan, err_msg=str(p))
+        a, b = a[~nan], b[~nan]
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        scale = float(np.abs(a).max()) if a.size else 0.0
+        assert err <= tol * max(scale, 1e-30), (path, p, err, scale)
+
+
+LR = 1e-3
+METRICS = ("loss", "ce", "aux_loss", "grad_norm", "lr")
+
+
+def ref_step_and_grads(rm, **kw):
+    """The reference's jitted train step with its loss's gradients on the
+    same inputs (one compile)."""
+    import jax
+
+    from repro.training.train_loop import make_loss_fn as ref_loss_fn
+    from repro.training.train_loop import (
+        make_train_step as ref_make_train_step)
+
+    step = ref_make_train_step(rm, **kw)
+    grad = jax.value_and_grad(ref_loss_fn(rm), has_aux=True)
+
+    def both(state, batch):
+        _, g = grad(state.params, batch)
+        new, metrics = step(state, batch)
+        return new, metrics, g
+    return jax.jit(both)
+
+
+def assert_train_metrics(got, want, tol=1e-4):
+    for key in METRICS:
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=tol, atol=tol, err_msg=key)
+
+
+def assert_params_near(cfg, want, got, lr):
+    """Every parameter within two learning rates of the reference's."""
+    from repro_torch.training.tree import leaves
+
+    for a, p in zip(leaves(port_layout_np(cfg, want)), leaves(got)):
+        np.testing.assert_allclose(p.detach().float().numpy(), a, rtol=0,
+                                   atol=2.0 * lr * (1 + 1e-3))
+
+
+#: zamba2's smoke model with SSD chunks of 4 (S 64 or 32 still divides):
+#: three steps of log-decay stay far below ``exp``'s overflow, so its
+#: gradients are finite in both packages
+ZAMBA2_FINITE = (("ssm", "chunk_size", 4),)
+
+
+def check_train_step(arch: str, nested: tuple = (),
+                     finite: bool = True) -> None:
+    """One train step of ``arch``'s smoke model (``nested`` applied as in
+    :func:`model_pair`) in both packages from one carried-across state
+    (the test files' docstrings say what is held); ``finite``: whether
+    every gradient is finite (else NaN at the same places in both)."""
+    import torch
+
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_loss_fn,
+                                                 make_train_step)
+    from repro_torch.training.tree import leaves
+
+    rm, rstate, tm, state = train_pair(arch, nested=nested)
+    jb, tb = train_batches(tm.cfg)
+    kw = dict(lr=LR, warmup=0, total_steps=10)
+    new, want, rgrads = ref_step_and_grads(rm, **kw)(rstate, jb)
+    before = clone_state(state)
+    loss, parts, grads = loss_and_grads(make_loss_fn(tm), state.params, tb)
+    assert_leaves_rel(port_layout_np(tm.cfg, rgrads), grads, 1e-4, arch)
+    # the reference's SSD chunk overflows where it masks, so zamba2's
+    # smoke gradients are NaN in both packages (ROADMAP.md queue C item 6)
+    assert finite == all(bool(torch.isfinite(g).all())
+                         for g in leaves(grads)), arch
+    out, got = make_train_step(tm, **kw)(state, tb)
+    assert out is state and int(state.step) == 1 == int(new.step)
+    assert_train_metrics(got, want)
+    np.testing.assert_allclose(float(loss), float(want["loss"]), rtol=1e-4)
+    assert_params_near(tm.cfg, new.params, state.params, LR)
+    assert any(not torch.equal(a, b) for a, b in
+               zip(leaves(before.params), leaves(state.params))), arch
+    assert all(p.requires_grad and p.grad is None
+               for p in leaves(state.params))
