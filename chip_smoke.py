@@ -15,7 +15,9 @@ each printing one JSON line with its seconds (the sharded and elastic
 runs also report where their wall time went, ``sharded_time_split``):
 
   device         the card, the torch and CUDA versions, the interpreter,
-                 the ``nvcc`` found, the build directory, and
+                 the ``nvcc`` found, the build directory, the card's
+                 ``total_memory`` beside ``launch/mesh.py``'s
+                 ``HW.HBM_BYTES``, and
                  ``nvidia-smi``'s name and power limit (``null`` with the
                  error when ``nvidia-smi`` is missing or fails: a missing
                  label is not a missing card);
@@ -70,6 +72,25 @@ runs also report where their wall time went, ``sharded_time_split``):
                  factorization, each held against its plain version at
                  every shape and timed at the full run's; the recovery
                  latency and the refresh's time split;
+  mesh           the sharded scan across ranks, each rank a process of
+                 its own on this card with torchrun's environment
+                 (``--mesh-rank``): an NCCL world of 1 (``case_serving``
+                 full at 1 shard: the exchange's all-gathers on the card),
+                 gloo worlds of 2 (``case_serving`` full, 2 shards; its
+                 smoke configuration against ``BENCH_case_serving.json``)
+                 and 4 (``case_elastic`` full, 2 <-> 4 shards, against
+                 ``ELASTIC_FULL``; its smoke configuration against
+                 ``BENCH_case_elastic.json``) sharing the card: every
+                 rank's counters equal the one-card loop's, every refresh
+                 on a mesh of one rank per shard; per rank
+                 ``used_shard_map``, the exchange's backend, seconds and
+                 bytes, and the launches;
+  dryrun         ``repro_torch.launch.dryrun`` on ``qwen2.5-3b`` x
+                 ``decode_32k`` x 16x16 (a fake group of 256 ranks) in a
+                 process of its own where importing JAX or the reference
+                 raises, started by ``mesh`` (it needs no card) and waited
+                 for here: its record (``status: "ok"``) on a line of its
+                 own;
   moe            ``repro_torch.cases.case_moe``: smoke against
                  ``BENCH_case_moe.json``, full (4096 experts, 1000 x 8
                  router sets, synthetic router) against ``MOE_FULL``, then
@@ -1390,14 +1411,20 @@ class Context:
         self.engine_check = {}        # engine kernel -> its check-batch times
         self.engine_path = {}         # engine kernel -> its table1 launches
         self.engine_builds = None     # the engine kernels' nvcc, running
+        self.serving_parity = None    # case_serving full, one-card loop
+        self.dryrun = None            # the dry-run's process, running
 
 
 def phase_device(ctx: Context) -> dict:
     from repro_torch.kernels import cuda
 
+    from repro_torch.launch.mesh import HW
+
     ctx.kind = torch.cuda.get_device_name(0)
     ctx.smi, smi_error = nvidia_smi()
     return {"kind": ctx.kind, "count": torch.cuda.device_count(),
+            "total_memory": torch.cuda.get_device_properties(0).total_memory,
+            "hw_hbm_bytes": HW.HBM_BYTES,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.executable, "nvcc": cuda.nvcc_path(),
             "build_dir": str(cuda.build_dir()), "nvidia_smi": ctx.smi,
@@ -1547,6 +1574,7 @@ def phase_serving_full(ctx: Context) -> dict:
     (full["sharded"], _), ctx.launches, cap, seconds = traced(
         serving_run, "sharded", 4, smoke=False, device=DEVICE)
     sh = full["sharded"]
+    ctx.serving_parity = sh["parity"]
     emit({"phase": "serving_full_runs", "launches": ctx.launches, **full})
     if not (full["vec"]["parity"] == full["scalar"]["parity"]
             == sh["parity"] == sh["shard_agg_parity"]):
@@ -1726,6 +1754,271 @@ def phase_elastic(ctx: Context) -> dict:
             "smoke_launches": s_launches, "launches": launches, **full,
             "sharded_time_split": time_split(full["wall_s_elastic"], seconds,
                                              launches, rows)}
+
+
+# --------------------------------------------------------------------------- #
+# sharding across ranks: the mesh exchange and the dry-run                    #
+# --------------------------------------------------------------------------- #
+
+#: the ``mesh`` phase's worlds: (name, backend, ranks), each rank a process
+#: of its own on this one card (torchrun's environment, a ``file://``
+#: rendezvous under ``build/``)
+MESH_WORLDS = (("nccl1", "nccl", 1), ("serving2", "gloo", 2),
+               ("wide2", "gloo", 2), ("elastic4", "gloo", 4))
+MESH_TIMEOUT_S = 300
+#: the ``dryrun`` phase's production cell
+DRYRUN_CELL = ("qwen2.5-3b", "decode_32k")
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+
+
+def mesh_required(kind: str) -> list:
+    """The kernels every rank of a ``mesh`` world launches: the flat mask
+    and gcd at 1 shard (it has no cross-shard composite to decode), the
+    limb mask and gcd with the squarefree decode at 128 bits, else the
+    flat mask, gcd and decode."""
+    return {"nccl1": ["divisibility_mask", "gcd"],
+            "wide2": WIDE_SHARDED}.get(kind, FLAT)
+
+
+def trail_digest(trail) -> str:
+    """A digest of a ``serving_run`` trail (parity counters, every touch's
+    tier, the prefetch log), to compare a rank's with this process's."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(trail, sort_keys=True, default=str)
+                          .encode()).hexdigest()
+
+
+def mesh_rank(kind: str, store: str) -> dict:
+    """One rank of a ``mesh`` world (``--mesh-rank``): start the group
+    from torchrun's environment, drive the world's run with every launch
+    counted from 0, every kernel input captured by shape and every
+    refresh's exchange logged; then, with the counts read, hold each
+    kernel the rank launched against its plain version on the card at
+    every shape it launched at, and report."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.cases import (bench_payload, case_elastic,
+                                   case_serving, serving_run)
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.serving.elastic import ElasticShardedPagedKVCache
+    from repro_torch.serving.kv_cache_sharded import ShardedPagedKVCache
+
+    backend = {name: b for name, b, _ in MESH_WORLDS}[kind]
+    dev = init_distributed(backend, device=DEVICE,
+                           init_method=f"file://{store}")
+    scans = []
+    undo = []
+    for cls in (ShardedPagedKVCache, ElasticShardedPagedKVCache):
+        orig = cls.__dict__["refresh_tables"]
+
+        def refresh(self, discover=None, _orig=orig):
+            _orig(self, discover)
+            if discover is None:
+                scans.append(dataclasses.asdict(self.last_scan))
+        setattr(cls, "refresh_tables", refresh)
+        undo.append((cls, orig))
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": backend, "device": str(dev)}
+    capture = Capture()
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if kind in ("nccl1", "serving2", "wide2"):
+            out["run"], trail = serving_run(
+                "sharded", 4, smoke=False, n_shards=1 if kind == "nccl1"
+                else 2, max_bits=128 if kind == "wide2" else 62, device=dev)
+            out["trail_digest"] = trail_digest(trail)
+        else:
+            out["run"] = case_elastic(smoke=False, device=dev)
+        if kind == "serving2":
+            out["bench_failures"] = bench_failures(
+                "BENCH_case_serving.json",
+                bench_payload("case_serving",
+                              case_serving(smoke=True, device=dev)))
+        elif kind == "elastic4":
+            out["bench_failures"] = bench_failures(
+                "BENCH_case_elastic.json", case_elastic(smoke=True,
+                                                       device=dev))
+        torch.cuda.synchronize(dev)
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = kernels.launch_counts()
+        dist.barrier()
+    finally:
+        capture.close()
+        for cls, orig in undo:
+            setattr(cls, "refresh_tables", orig)
+        dist.destroy_process_group()
+    rows = check_path(f"mesh_{kind}_rank{out['rank']}", out["launches"],
+                      capture.inputs, timed=False,
+                      required=mesh_required(kind),
+                      shape_launches=capture.launches)
+    out["shapes_checked"] = _kernel_summary(rows)
+    out["refreshes"] = len(scans)
+    out["used_shard_map"] = sorted({s["used_shard_map"] for s in scans})
+    out["exchange_backend"] = sorted({str(s["exchange_backend"])
+                                      for s in scans})
+    out["exchange_s"] = sum(s["exchange_s"] for s in scans)
+    out["exchange_bytes"] = sum(s["exchange_bytes"] for s in scans)
+    out["shards"] = sorted({s["n_shards"] for s in scans})
+    return out
+
+
+def run_world(kind: str, ranks: int) -> list:
+    """The ranks of one ``mesh`` world, each ``chip_smoke.py --mesh-rank``
+    in a process of its own with torchrun's environment; every process is
+    waited for (killed past ``MESH_TIMEOUT_S``).  Returns each rank's
+    report; a failed rank raises with its error output."""
+    store = os.path.join(ROOT, "build", f"mesh_store_{kind}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", kind,
+             "--mesh-store", store], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports, failed = [], []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}: {err[-2000:]}")
+            continue
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    if failed:
+        raise AssertionError(f"mesh world {kind}: " + " | ".join(failed))
+    return reports
+
+
+def phase_mesh(ctx: Context) -> dict:
+    """The sharded scan across ranks on this card: an NCCL world of 1
+    (``case_serving`` full at 1 shard: the exchange's all-gathers run on
+    the card), gloo worlds of 2 (``case_serving`` full, ``kv="sharded"``,
+    narrow, its smoke configuration against ``BENCH_case_serving.json``;
+    and at ``max_bits`` 128, the limb kernels) and 4 (``case_elastic``
+    full, 2 <-> 4 shards, against ``ELASTIC_FULL``; its smoke
+    configuration against ``BENCH_case_elastic.json``), the ranks sharing
+    the card (gloo stages the exchange through host memory).  Every
+    rank's counters, and each serving world's tiers and prefetch log,
+    equal the one-card runs'; every refresh ran on a mesh of one rank per
+    shard; each rank launched its world's kernels (``mesh_required``) on
+    the card and held every kernel it launched against its plain version
+    at each shape it launched at (``shapes_checked``)."""
+    ctx.dryrun = start_dryrun()     # host-only: it overlaps the worlds
+    digest = trail_digest(ctx.serving_trail)
+    out = {}
+    for kind, backend, ranks in MESH_WORLDS:
+        t0 = time.perf_counter()
+        reps = run_world(kind, ranks)
+        out[kind] = {
+            "backend": backend, "ranks": ranks,
+            "wall_s": time.perf_counter() - t0,
+            "per_rank": [{k: rep[k] for k in (
+                "rank", "device", "seconds", "refreshes", "shards",
+                "used_shard_map", "exchange_backend", "exchange_s",
+                "exchange_bytes", "launches", "shapes_checked")}
+                for rep in reps]}
+        emit({"phase": f"mesh_{kind}", **out[kind]})
+        bad = []
+        for rep in reps:
+            label = f"{kind} rank {rep['rank']}"
+            if kind == "elastic4":
+                bad += counter_failures(label, ELASTIC_FULL, rep["run"])
+            else:
+                if rep["run"]["parity"] != list(ctx.serving_parity):
+                    bad.append(f"{label}: parity {rep['run']['parity']} != "
+                               f"the one-card loop's {ctx.serving_parity}")
+                if rep["trail_digest"] != digest:
+                    bad.append(f"{label}: tiers or prefetch log differ from "
+                               f"the one-card run's")
+            bad += [f"{label}: {f}" for f in rep.get("bench_failures", [])]
+            if rep["used_shard_map"] != [True] or \
+                    rep["exchange_backend"] != [backend]:
+                bad.append(f"{label}: refreshes off the mesh "
+                           f"({rep['used_shard_map']}, "
+                           f"{rep['exchange_backend']})")
+            if sorted(rep["shapes_checked"]) != sorted(
+                    n for n, c in rep["launches"].items() if c):
+                bad.append(f"{label}: kernels launched but not checked "
+                           f"({rep['shapes_checked']})")
+        if bad:
+            raise AssertionError("; ".join(bad))
+    out["matches"] = ["one-card case_serving runs", "ELASTIC_FULL",
+                      "BENCH_case_serving.json", "BENCH_case_elastic.json"]
+    return out
+
+
+_DRYRUN = """
+import sys
+sys.modules["jax"] = sys.modules["repro"] = None      # importing either raises
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun
+sys.exit(dryrun.main(sys.argv[2:]))
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """``repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` (the 16x16 mesh: a
+    fake group of 256 ranks) in a process of its own where importing JAX
+    or the reference raises, its output in ``DRYRUN_OUT``."""
+    arch, shape = DRYRUN_CELL
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    log = open(os.path.join(DRYRUN_OUT, "log.txt"), "w")
+    with log:
+        return subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN, os.path.join(ROOT, "src"),
+             "--arch", arch, "--shape", shape, "--mesh", "single", "--force",
+             "--out", DRYRUN_OUT], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)
+
+
+def phase_dryrun(ctx: Context) -> dict:
+    """The dry-run the ``mesh`` phase started (``start_dryrun``), waited
+    for: its record, ``status: "ok"``, printed on a line of its own."""
+    t0 = time.perf_counter()
+    proc, ctx.dryrun = ctx.dryrun, None
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    waited_s = time.perf_counter() - t0
+    if rc != 0:
+        with open(os.path.join(DRYRUN_OUT, "log.txt")) as f:
+            raise AssertionError(f"dryrun exit {rc}: {f.read()[-3000:]}")
+    from repro_torch.launch import dryrun
+
+    arch, shape = DRYRUN_CELL
+    path = dryrun.artifact_path(dryrun.Path(DRYRUN_OUT), arch, shape, False)
+    with open(path) as f:
+        rec = json.load(f)
+    if rec.get("status") != "ok":
+        raise AssertionError(f"dryrun {path.name}: {rec.get('error')}")
+    emit({"dryrun_record": {k: v for k, v in rec.items()
+                            if k != "traceback"}})
+    return {"artifact": os.path.relpath(path, ROOT), "status": rec["status"],
+            "waited_s": waited_s, "n_devices": rec["n_devices"],
+            "argument_bytes_per_rank":
+                rec["memory"]["argument_size_in_bytes"],
+            "collectives": rec["collectives"]}
 
 
 def phase_moe(ctx: Context) -> dict:
@@ -3920,6 +4213,8 @@ PHASES = [
     ("batching_full", phase_batching_full),
     ("launcher", phase_launcher),
     ("elastic", phase_elastic),
+    ("mesh", phase_mesh),
+    ("dryrun", phase_dryrun),
     ("moe", phase_moe),
     ("model_check", phase_model_check),
     ("model_serving", phase_model_serving),
@@ -4051,6 +4346,8 @@ def main(argv=()) -> int:
                          "tree's, in turns")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--table1-times", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-rank", metavar="WORLD", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-store", help=argparse.SUPPRESS)
     args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4058,6 +4355,9 @@ def main(argv=()) -> int:
         return 2
     if args.table1_times:
         emit(table1_times(os.path.abspath(args.table1_times)))
+        return 0
+    if args.mesh_rank:
+        emit(mesh_rank(args.mesh_rank, args.mesh_store))
         return 0
     if args.compare_engine:
         return compare_engine(os.path.abspath(args.compare_engine),
@@ -4083,6 +4383,9 @@ def main(argv=()) -> int:
     finally:
         if ctx.engine_builds:
             ctx.engine_builds.stop()
+        if ctx.dryrun is not None and ctx.dryrun.poll() is None:
+            ctx.dryrun.kill()
+            ctx.dryrun.wait()
     return 0
 
 

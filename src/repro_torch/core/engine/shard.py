@@ -36,13 +36,26 @@ packed at the registry's own width, and the gcd exchange rebuilds each
 gcd from the shard's deduplicated query primes (the primes its chunks
 are made of).
 
-This slice runs every shard on one device, as a per-shard loop over the
-kernels — the path ``repro`` takes on a host with fewer devices than
-shards, and bit-identical to its ``shard_map`` path.  The multi-device
-exchange (``torch.distributed``) is still to port (ROADMAP.md A.8).
+**Across ranks.**  With a started ``torch.distributed`` group of at
+least ``n_shards`` ranks, :func:`shard_mesh` lays the first ``n_shards``
+ranks out as a ``("data", "model")`` ``DeviceMesh`` and the scan runs one
+shard per rank — the reference's ``shard_map`` path: rank ``r`` scans
+shard ``r`` with the kernels, the cross-shard slices are replicated to
+every rank by an all-gather over the mesh (the exchange), and the masks
+and gcds are gathered so that every rank assembles every row (what
+JAX's single controller does when it reads a sharded output); ranks
+outside an ``n_shards``-rank sub-mesh receive them by a broadcast.  Every
+rank pads the same host state, so the shapes agree.  Over NCCL the
+collectives move card tensors; ranks that share a card run gloo, and the
+exchange is staged through host memory (gloo gathers no CUDA tensors).
+Without a group, or with fewer ranks than shards, the shards run in turn
+on one device — the path ``repro`` takes on a host with fewer devices
+than shards, bit-identical to the mesh path.
 """
 from __future__ import annotations
 
+import functools
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -56,8 +69,8 @@ from repro_torch.sharding.stripes import BlockStripes
 from ..composite import encode_relationship, limbs_to_int, pack_limbs
 from ..primes import CacheLevel, LEVEL_PRIME_RANGES
 
-__all__ = ["PrimeSpacePartition", "shard_mesh", "sharded_successor_table",
-           "ShardScanReport"]
+__all__ = ["PrimeSpacePartition", "shard_mesh", "resolve_mesh",
+           "sharded_successor_table", "ShardScanReport"]
 
 
 class PrimeSpacePartition:
@@ -120,14 +133,59 @@ class PrimeSpacePartition:
                 f"stripes={self.stripes_per_shard}, {', '.join(parts)})")
 
 
+#: the meshes :func:`shard_mesh` made, by shard count, and the default
+#: group they were made over (a new group starts a new set)
+_MESHES: Dict[int, object] = {}
+_MESHES_GROUP: List[object] = [None]
+
+
 def shard_mesh(n_shards: int):
-    """The device mesh for ``n_shards`` shards, or ``None`` when the
-    shards run as a loop on one device.  The port has no multi-device
-    exchange yet (ROADMAP.md A.8), so this is always ``None`` — the case
-    ``repro`` takes when the host exposes fewer devices than shards."""
+    """A ``("data", "model")`` ``DeviceMesh`` with ``data * model ==
+    n_shards`` over the first ``n_shards`` ranks of the started process
+    group, or ``None`` when no group is started or it has fewer ranks
+    than shards (callers then run the bit-identical one-device loop).
+    Every rank of the group calls it (the mesh's sub-groups are made by
+    all of them) the first time for each shard count; later calls on the
+    same group return the same mesh, so a resize storm makes no new
+    sub-groups.
+
+    The model axis takes the largest divisor of ``n_shards`` that is
+    <= sqrt(n_shards) — 1 shard -> (1, 1), 2 -> (2, 1), 4 -> (2, 2) —
+    mirroring ``launch.mesh.make_production_mesh``'s square-ish layout.
+    """
+    import torch.distributed as dist
+
     if n_shards < 1:
         raise ValueError("n_shards must be >= 1")
-    return None
+    if not dist.is_initialized() or dist.get_world_size() < n_shards:
+        return None
+    if _MESHES_GROUP[0] is not dist.group.WORLD:
+        _MESHES.clear()
+        _MESHES_GROUP[0] = dist.group.WORLD
+    if n_shards not in _MESHES:
+        from repro_torch.launch.mesh import make_mesh
+
+        model = 1
+        for m in range(int(n_shards ** 0.5), 0, -1):
+            if n_shards % m == 0:
+                model = m
+                break
+        _MESHES[n_shards] = make_mesh((n_shards // model, model),
+                                      ("data", "model"))
+    return _MESHES[n_shards]
+
+
+def resolve_mesh(mesh, n_shards: int):
+    """The mesh a cache of ``n_shards`` scans on: ``"auto"`` is
+    :func:`shard_mesh` (``None`` off a group), ``None`` the one-device
+    loop, and an explicit mesh must hold one rank per shard
+    (``ValueError`` otherwise, as the reference raises)."""
+    if isinstance(mesh, str) and mesh == "auto":
+        return shard_mesh(n_shards)
+    if mesh is not None and mesh.size() != n_shards:
+        raise ValueError(f"mesh has {mesh.size()} ranks, cache has "
+                         f"{n_shards} shards")
+    return mesh
 
 
 def _pad_rows(rows: Sequence[np.ndarray], mult: int, fill: int,
@@ -147,7 +205,11 @@ def _pad_rows(rows: Sequence[np.ndarray], mult: int, fill: int,
 
 @dataclass
 class ShardScanReport:
-    """Per-refresh work split (benchmark / introspection output)."""
+    """Per-refresh work split (benchmark / introspection output).  The
+    exchange fields are the port's: the backend of the mesh's collectives
+    (``None`` for the one-device loop), the bytes this rank received by
+    them, and their seconds on the host's clock (each waits for its
+    result)."""
 
     n_shards: int = 0
     used_shard_map: bool = False
@@ -155,6 +217,81 @@ class ShardScanReport:
     cross_composites: int = 0
     queries_per_shard: List[int] = field(default_factory=list)
     gcd_pairs: int = 0
+    exchange_backend: Optional[str] = None
+    exchange_bytes: int = 0
+    exchange_s: float = field(default=0.0, compare=False)
+
+
+class _Exchange:
+    """The collectives of one refresh on ``mesh``: each all-gathers over
+    every mesh dim (the last first, so the result is in row-major rank
+    order, the order of the shards), staged through host memory when the
+    group's backend moves no card tensors; tallies their bytes and
+    seconds."""
+
+    def __init__(self, mesh, device):
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.device = device
+        self.backend = dist.get_backend()
+        self.host = mesh.device_type == "cpu" and device.type == "cuda"
+        self.bytes = 0
+        self.seconds = 0.0
+        ranks = mesh.mesh.flatten().tolist()
+        me = dist.get_rank()
+        self.position = ranks.index(me) if me in ranks else None
+        self.outside = dist.get_world_size() > len(ranks)
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self.host else t
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ``t`` with every mesh rank's stacked on dim 0, on
+        ``device``."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        out = self._wire(t.contiguous())
+        for dim in reversed(range(self.mesh.ndim)):
+            k = self.mesh.size(dim)
+            buf = torch.empty((k * out.shape[0],) + tuple(out.shape[1:]),
+                              dtype=out.dtype, device=out.device)
+            dist.all_gather_into_tensor(buf, out,
+                                        group=self.mesh.get_group(dim))
+            out = buf
+        out = out.to(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.seconds += time.perf_counter() - t0
+        self.bytes += out.numel() * out.element_size()
+        return out
+
+    def share(self, t: Optional[torch.Tensor], shape, dtype) -> torch.Tensor:
+        """``t`` (the mesh's result; ``None`` on a rank outside the mesh)
+        broadcast from rank 0 to every rank of the group when some rank
+        lies outside the mesh."""
+        import torch.distributed as dist
+
+        if not self.outside:
+            return t
+        t0 = time.perf_counter()
+        buf = (self._wire(t.contiguous()) if t is not None else
+               torch.empty(shape, dtype=dtype,
+                           device="cpu" if self.host or
+                           self.device.type == "cpu" else self.device))
+        dist.broadcast(buf, src=0)
+        out = buf.to(self.device)
+        self.seconds += time.perf_counter() - t0
+        if t is None:
+            self.bytes += out.numel() * out.element_size()
+        return out
+
+    def report(self, report: Optional["ShardScanReport"]) -> None:
+        if report is not None:
+            report.exchange_backend = self.backend
+            report.exchange_bytes = self.bytes
+            report.exchange_s = self.seconds
 
 
 def _check_stacks(**stacks: np.ndarray) -> None:
@@ -166,6 +303,26 @@ def _check_stacks(**stacks: np.ndarray) -> None:
 def _up(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)
                             ).to(device)
+
+
+def _mesh_scan(one_shard, stacks: Sequence[np.ndarray], out_shapes,
+               mesh, device, report) -> Tuple[np.ndarray, np.ndarray]:
+    """``one_shard`` on the mesh: rank ``r`` runs it on row ``r`` of each
+    of ``stacks`` (the (S, ...) host stacks, the cross slices last, which
+    are first all-gathered over the mesh: the exchange), its ``(mask,
+    gcds)`` gathered to every mesh rank and shared with the ranks outside
+    the mesh; ``out_shapes`` are the (S, ...) shapes of the two."""
+    ex = _Exchange(mesh, device)
+    mask = g = None
+    r = ex.position
+    if r is not None:
+        *mine, cross = (_up(x[r], device) for x in stacks)
+        m, gr = one_shard(*mine, ex.gather(cross))
+        mask, g = ex.gather(m[None]), ex.gather(gr[None])
+    mask = ex.share(mask, out_shapes[0], torch.bool)
+    g = ex.share(g, out_shapes[1], torch.int64)
+    ex.report(report)
+    return mask.cpu().numpy(), g.cpu().numpy()
 
 
 def _one_shard_scan(lc: torch.Tensor, qs: torch.Tensor, ck: torch.Tensor,
@@ -183,18 +340,28 @@ def _one_shard_scan(lc: torch.Tensor, qs: torch.Tensor, ck: torch.Tensor,
 
 def _scan_sharded(local_c: np.ndarray, queries: np.ndarray,
                   chunks: np.ndarray, cross_c: np.ndarray,
-                  device) -> Tuple[np.ndarray, np.ndarray]:
+                  device, mesh=None, report=None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """The per-shard kernel work: local divisibility masks + cross gcds.
 
     Inputs are (S, *) padded int64 stacks; returns ``(local_mask (S, C,
-    Q), gcds (S, K, X))``.  Every shard runs in turn on ``device``
-    against the whole cross-shard slice (what the all-gather of the
-    multi-device path would hand each shard)."""
+    Q), gcds (S, K, X))``.  With a mesh of exactly S ranks, rank ``r``
+    scans shard ``r`` against the cross slices all-gathered over the mesh
+    (the exchange) and the results are gathered to every rank; without
+    one, every shard runs in turn on ``device`` against the whole
+    cross-shard slice (what the all-gather would hand each shard)."""
     _check_stacks(local=local_c, queries=queries, chunks=chunks,
                   cross=cross_c)
     S, C = local_c.shape
+    Q = queries.shape[1]
     K = chunks.shape[1]
+    X = S * cross_c.shape[1]
     with kernel_scope("sharded_gcd_exchange", items=S * C):
+        if mesh is not None:
+            return _mesh_scan(
+                functools.partial(_one_shard_scan, n_chunks=K),
+                (local_c, queries, chunks, cross_c), ((S, C, Q), (S, K, X)),
+                mesh, device, report)
         lc, qs, ck = (_up(x, device) for x in (local_c, queries, chunks))
         gathered = _up(cross_c.reshape(-1), device)
         masks, gs = [], []
@@ -248,16 +415,23 @@ def _one_shard_scan_limbs(lc: torch.Tensor, qs: torch.Tensor,
 
 def _scan_sharded_limbs(local_c: np.ndarray, queries: np.ndarray,
                         chunks: np.ndarray, pools: np.ndarray,
-                        cross_c: np.ndarray,
-                        device) -> Tuple[np.ndarray, np.ndarray]:
+                        cross_c: np.ndarray, device, mesh=None,
+                        report=None) -> Tuple[np.ndarray, np.ndarray]:
     """Wide twin of :func:`_scan_sharded`: (S, C, L) local limb stacks,
     (S, K, L) query-chunk limbs, (S, X, L) cross slices and (S, P) gcd
     pools; returns ``(local_mask (S, C, Q), gcd limbs (S, K, X, L))``."""
     _check_stacks(local=local_c, queries=queries, chunks=chunks,
                   pools=pools, cross=cross_c)
     S, C, L = local_c.shape
+    Q = queries.shape[1]
     K = chunks.shape[1]
+    X = S * cross_c.shape[1]
     with kernel_scope("sharded_gcd_exchange_limbs", items=S * C):
+        if mesh is not None:
+            return _mesh_scan(
+                functools.partial(_one_shard_scan_limbs, n_chunks=K),
+                (local_c, queries, chunks, pools, cross_c),
+                ((S, C, Q), (S, K, X, L)), mesh, device, report)
         lc, qs, ck, pl = (_up(x, device) for x in (local_c, queries, chunks,
                                                    pools))
         gathered = _up(cross_c.reshape(-1, L), device)
@@ -290,17 +464,16 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
 
     ``precomputed`` optionally supplies the ``(local_pos, cross_pos)``
     registry split instead of the O(registry)
-    :meth:`PrimeSpacePartition.classify` walk.  ``mesh`` must be ``None``
-    (the shards run in turn on ``device``) until the multi-device
-    exchange is ported.
+    :meth:`PrimeSpacePartition.classify` walk.  ``mesh``: ``None`` (the
+    shards run in turn on ``device``), ``"auto"`` or a mesh of exactly one
+    rank per shard (:func:`resolve_mesh`), called on every rank of the
+    group.
     """
     dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError("a multi-device mesh is not ported yet "
-                                  "(ROADMAP.md A.8)")
     from repro_torch.kernels.ops import factorize_batch_exact
 
     S = partition.n_shards
+    mesh = resolve_mesh(mesh, S)
     wide = getattr(registry, "wide", False)
     keyed = [(int(d), p) for d in data_ids
              if (p := assigner.prime_of(int(d))) is not None]
@@ -355,7 +528,7 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
             [cross_limbs[s * per:(s + 1) * per] for s in range(S)],
             1, Lw, width=per)
         mask, gcds = _scan_sharded_limbs(local_c, queries, chunks, pools,
-                                         cross_sh, dev)
+                                         cross_sh, dev, mesh, report)
         n_gcd_pairs = int(chunks.shape[1] * S * per)
     else:
         local_c = _pad_rows([arr[np.asarray(pos, dtype=np.int64)]
@@ -369,12 +542,13 @@ def sharded_successor_table(registry, assigner, data_ids: Sequence[int],
         for s in range(S):
             sl = cross_arr[s * per:(s + 1) * per]
             cross_sh[s, :sl.shape[0]] = sl
-        mask, gcds = _scan_sharded(local_c, queries, chunks, cross_sh, dev)
+        mask, gcds = _scan_sharded(local_c, queries, chunks, cross_sh, dev,
+                                   mesh, report)
         n_gcd_pairs = int(chunks.shape[1] * cross_sh.size)
 
     if report is not None:
         report.n_shards = S
-        report.used_shard_map = False
+        report.used_shard_map = mesh is not None
         report.local_composites = [len(p) for p in local_pos]
         report.cross_composites = len(cross_pos)
         report.queries_per_shard = [len(sh) for sh in by_shard]

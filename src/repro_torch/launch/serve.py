@@ -18,17 +18,28 @@ cache with live resize and shard-loss recovery).  ``--trace PATH``
 records the observability layer (event ring, telemetry and the kernel
 ledger) and writes its export, the input of ``tools/trace_view.py``.
 
+Under ``torchrun`` (``--dist-backend gloo|nccl`` names the backend; a
+world larger than 1 without it is refused) every rank starts the
+process group, runs the same serving program and prints the same
+counters: with ``--kv sharded`` / ``elastic`` the registry refreshes
+scan one shard per rank and exchange the cross-shard slices by an
+all-gather (2 shards; ranks beyond them receive the results by a
+broadcast).  Ranks that share a card run ``gloo``.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --requests 16 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --null-model \
         --kv sharded --max-batch 128 --requests 256
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --null-model \
+        --kv sharded --dist-backend gloo
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -73,7 +84,39 @@ def main(argv=None):
                     help="where the model and the discovery kernels run: "
                          "'cuda' (the default) or 'cpu' for the plain "
                          "versions")
+    ap.add_argument("--dist-backend", choices=("gloo", "nccl"), default=None,
+                    help="under torchrun: start the process group with "
+                         "this backend (ranks sharing a card: gloo)")
+    ap.add_argument("--dist-init-method", default=None,
+                    help="the group's rendezvous (default env://, "
+                         "torchrun's MASTER_ADDR / MASTER_PORT; e.g. "
+                         "file:///path)")
     args = ap.parse_args(argv)
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.dist_backend is None and world > 1:
+        ap.error(f"a world of {world} ranks: pass --dist-backend")
+    if args.dist_backend is not None:
+        from repro_torch.launch.mesh import init_distributed
+
+        args.device = str(init_distributed(
+            args.dist_backend, device=args.device,
+            init_method=args.dist_init_method))
+    try:
+        out = _serve(args)
+        if args.dist_backend is not None:
+            import torch.distributed as dist
+
+            dist.barrier()      # no rank leaves while another still serves
+        return out
+    finally:
+        if args.dist_backend is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args):
 
     obs = None
     if args.trace:
@@ -171,6 +214,13 @@ def main(argv=None):
             "registry_scans": st.registry_scans,
         }
         pages = engine.pages
+    if args.dist_backend is not None:
+        import torch.distributed as dist
+
+        scan = getattr(pages, "last_scan", None)
+        out.update(rank=dist.get_rank(), world=dist.get_world_size(),
+                   used_shard_map=getattr(scan, "used_shard_map", None),
+                   exchange_backend=getattr(scan, "exchange_backend", None))
     if obs is not None:
         from repro_torch.obs import profile
 

@@ -6,9 +6,11 @@ Runs a real training loop on ``--device`` (the card unless told
 loader, train step (eager, updating the train state in place, as the
 reference's jitted step does with its donated state), checkpoint/restore
 with atomic commit, the straggler monitor, and the optional PFCS-cached
-data tier.  One process is rank 0 of a world of 1 (the reference asks
-``jax.process_index()`` / ``process_count()``; sharding across cards is
-ROADMAP.md A.8).
+data tier.  The loader's shard and the straggler log's rank are the
+process group's rank and world when one is started (the reference asks
+``jax.process_index()`` / ``process_count()``), 0 of 1 when none is; as
+in the reference, every process trains the whole model on its own
+loader shard (no data-parallel step).
 
 ``examples/train_lm.py`` calls this launcher with a ~33M config.
 
@@ -25,6 +27,15 @@ import time
 from pathlib import Path
 
 import torch
+
+
+def process_rank_world():
+    """(rank, world) of the started process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def main(argv=None):
@@ -79,7 +90,7 @@ def main(argv=None):
     if args.pfcs_data:
         from repro_torch.core.pfcs_cache import PFCSCache
         pfcs = PFCSCache(capacities=(("L1", 8), ("L2", 32), ("L3", 64)))
-    rank, world = 0, 1
+    rank, world = process_rank_world()
     loader = ShardedLoader(corpus, args.batch, args.seq, shard_index=rank,
                            shard_count=world, pfcs_cache=pfcs)
 

@@ -25,10 +25,23 @@ Params = Dict[str, Any]
 
 
 def _constrain(x: torch.Tensor, spec_entries) -> torch.Tensor:
-    """The reference's sharding constraint, a no-op without a mesh; the
-    port has one card and no mesh (ROADMAP.md A.8)."""
-    del spec_entries
-    return x
+    """The reference's sharding constraint: a ``DTensor`` is
+    redistributed to the spec on its own mesh; a plain tensor, or a spec
+    naming an axis the mesh lacks, passes unchanged (the reference's
+    constraint is a no-op without a matching mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.partition import NamedSharding, PartitionSpec
+
+    names = set(x.device_mesh.mesh_dim_names or ())
+    for e in spec_entries:
+        axes = () if e is None else ((e,) if isinstance(e, str) else e)
+        if not set(axes) <= names:
+            return x
+    sharding = NamedSharding(x.device_mesh, PartitionSpec(*spec_entries))
+    return x.redistribute(x.device_mesh, sharding.placements())
 
 
 def init_moe(gen, cfg, device) -> Params:

@@ -42,9 +42,11 @@ deterministic injectable clock: heartbeat expiry -> fail + recover;
 straggler eviction -> same; healthy-count change -> planner-driven
 resize to the largest power-of-two shard count.
 
-On one card the shards run as a loop (``shard_mesh`` returns ``None``,
-the case the reference takes on a host with fewer devices than shards);
-every kernel call runs on the cache's ``device``.
+Without a started ``torch.distributed`` group (or with fewer ranks than
+shards) the shards run as a loop (``shard_mesh`` returns ``None``, the
+case the reference takes on a host with fewer devices than shards); with
+one, every resize re-meshes and each rank scans its shard.  Every kernel
+call runs on the cache's ``device``.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 from repro_torch.core.engine.shard import (PrimeSpacePartition,
-                                           ShardScanReport, shard_mesh,
+                                           ShardScanReport, resolve_mesh,
                                            sharded_successor_table)
 from repro_torch.obs.trace import EV_RECOVERY
 from repro_torch.sharding.reshard import ReshardPlan, ShardSlices
@@ -214,14 +216,12 @@ class ElasticShardedPagedKVCache(ShardedPagedKVCache):
         only the moved blocks' registry index entries.  Successor rows
         and all placement state are untouched (they are shard-count
         independent), so every placement decision after a resize is
-        bit-identical to the uninterrupted run.  ``mesh`` must be
-        ``"auto"`` or ``None``: the shards run as a loop on ``device``
-        (a multi-device mesh is ROADMAP.md A.8)."""
+        bit-identical to the uninterrupted run.  ``mesh="auto"`` re-meshes
+        (:func:`shard_mesh`: a sub-mesh of the first ``n_shards`` ranks, or
+        ``None`` for the one-device loop); an explicit mesh must hold one
+        rank per shard."""
         if n_shards < 1:
             raise ValueError("n_shards must be >= 1")
-        if mesh not in ("auto", None):
-            raise NotImplementedError("an explicit multi-device mesh is not "
-                                      "ported yet (ROADMAP.md A.8)")
         self._recover_dead()
         self.slices.sync(self.registry)
         new_part = PrimeSpacePartition(int(n_shards),
@@ -229,7 +229,7 @@ class ElasticShardedPagedKVCache(ShardedPagedKVCache):
         plan = self.slices.restripe(new_part)
         self.partition = new_part
         old_n, self.n_shards = self.n_shards, new_part.n_shards
-        self.mesh = shard_mesh(self.n_shards)
+        self.mesh = resolve_mesh(mesh, self.n_shards)
         # fold per-shard accounting so sum(shard_stats) == global stats
         # survives every resize (shard s's history lands on s % n_new)
         old_stats = self.shard_stats

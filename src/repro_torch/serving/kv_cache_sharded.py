@@ -29,8 +29,12 @@ Placement (HBM slot arrays, LRU stamps) deliberately remains ONE global
 state machine: Theorem 1's zero-false-positive guarantee and the
 oracle-parity contract both pin the *global* interleaving of demand and
 prefetch traffic, and HBM is one physical resource per serving host.
-In this slice every shard runs on one device; the multi-device exchange
-is still to port (ROADMAP.md A.8).
+What spreads over ranks is the discovery work: with ``mesh="auto"`` and a
+started ``torch.distributed`` group of at least ``n_shards`` ranks, each
+rank scans one shard and the cross-shard slices ride an all-gather
+(``core/engine/shard.py``); every rank runs the same serving program and
+ends with the same rows and counters.  Without a group the shards run as
+a loop on ``device``.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.engine.shard import (PrimeSpacePartition,
-                                           ShardScanReport, shard_mesh,
+                                           ShardScanReport, resolve_mesh,
                                            sharded_successor_table)
 from repro_torch.obs.trace import EV_GCD_EXCHANGE
 
@@ -61,9 +65,6 @@ class ShardedPagedKVCache(VectorizedPagedKVCache):
                  prefetch_budget: int = 4, n_shards: int = 2,
                  mesh="auto", stripes_per_shard: int = 8,
                  max_bits: int = 62, device="cuda"):
-        if mesh not in ("auto", None):
-            raise NotImplementedError("an explicit multi-device mesh is not "
-                                      "ported yet (ROADMAP.md A.8)")
         # discover="host" disables the incremental fast path, so every
         # registry change routes through the (sharded) bulk rebuild
         super().__init__(hbm_pages=hbm_pages, page_size=page_size,
@@ -71,7 +72,7 @@ class ShardedPagedKVCache(VectorizedPagedKVCache):
                          max_bits=max_bits, device=device)
         self.partition = PrimeSpacePartition(n_shards, stripes_per_shard)
         self.n_shards = self.partition.n_shards
-        self.mesh = shard_mesh(self.n_shards)
+        self.mesh = resolve_mesh(mesh, self.n_shards)
         self.shard_stats: List[PageStats] = [PageStats()
                                              for _ in range(self.n_shards)]
         self.last_scan = ShardScanReport()
@@ -102,7 +103,8 @@ class ShardedPagedKVCache(VectorizedPagedKVCache):
 
     def refresh_tables(self, discover: Optional[str] = None) -> None:
         """Rebuild every successor row by per-shard divisibility scans +
-        the cross-shard gcd exchange, on ``device``.  An explicit
+        the cross-shard gcd exchange, on ``device`` (one shard per rank of
+        ``mesh``, when there is one).  An explicit
         ``discover="host"|"kernel"`` falls back to the single-device
         bulk path (cross-check hook for the parity tests)."""
         if discover is not None:

@@ -3,7 +3,11 @@
 clipping, the train step with microbatching, the checkpoint manager,
 error-feedback gradient compression, and ``elastic`` (the fleet planner,
 heartbeats and straggler monitor, which ``repro_torch.serving.elastic``
-also drives).  Sharding the train state across cards is ROADMAP.md A.8."""
+also drives).  ``repro_torch.sharding.partition`` gives the train
+state's shardings on a mesh, ``CheckpointManager.restore(shardings=...)``
+re-shards a checkpoint onto one, and ``repro_torch.launch.dryrun`` traces
+the sharded train step; as in the reference, no data-parallel step runs
+on real ranks."""
 
 from .checkpoint import CheckpointManager
 from .optimizer import (OPTIMIZERS, Optimizer, adafactor, adamw,

@@ -24,10 +24,13 @@ as its 16-bit patterns (``uint16``), its manifest dtype ``"bfloat16"``
 and its checksum over those bytes; ``restore`` gives it back bit for bit.
 
 Not mirrored: the manifest's ``treedef`` string (a JAX pytree repr) is
-written as the port's tree's type; ``restore(shardings=...)`` (elastic
-re-shard onto a mesh) is ROADMAP.md A.8.  ``restore`` writes the
-checkpoint into the target tree's tensors in place (the train state's
-own tensors, as the train step updates them) and returns that tree.
+written as the port's tree's type.  ``restore`` writes the checkpoint
+into the target tree's tensors in place (the train state's own tensors,
+as the train step updates them) and returns that tree; with
+``shardings=`` (elastic re-shard onto a mesh) it returns a new tree whose
+sharded leaves are DTensors built from the rows of each ``.npy``
+that this rank owns (read through a memory map: the counterpart of the
+reference's ``make_array_from_callback``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .tree import leaves_with_path, path_str
+from .tree import leaves_with_path, path_str, tree_map
 
 __all__ = ["CheckpointManager"]
 
@@ -74,6 +77,29 @@ def _from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def _checksum(arr: np.ndarray) -> str:
     return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+
+
+def _shardings_by_path(shardings) -> Dict[str, Any]:
+    if shardings is None:
+        return {}
+    from repro_torch.sharding.partition import NamedSharding
+
+    return {path_str(p): s for p, s in leaves_with_path(
+        shardings, is_leaf=lambda x: isinstance(x, NamedSharding))}
+
+
+def _dtensor_from(arr: np.ndarray, sharding, ref: torch.Tensor):
+    """A ``DTensor`` of ``arr`` placed by ``sharding``, its local shard
+    read from this rank's block of rows (on ``ref``'s device)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.partition import local_block
+
+    local = np.ascontiguousarray(arr[local_block(sharding, arr.shape)])
+    t = _from_numpy(local, ref.dtype).to(ref.device)
+    return DTensor.from_local(t, sharding.mesh, sharding.placements(),
+                              run_check=False, shape=tuple(arr.shape),
+                              stride=tuple(ref.stride()))
 
 
 class CheckpointManager:
@@ -172,22 +198,27 @@ class CheckpointManager:
 
         Every leaf of the target must be in the checkpoint with its shape
         and dtype; ``verify`` checks each file's checksum first.
+        ``shardings``: a tree of
+        :class:`~repro_torch.sharding.partition.NamedSharding` matching
+        the target (or a sub-tree of its paths); its leaves come back as
+        DTensors holding this rank's rows, in a new tree (the
+        other leaves are restored in place).
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a device mesh: "
-                "ROADMAP.md A.8")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         cdir = self.dir / f"step_{step:08d}"
         manifest = json.loads((cdir / "manifest.json").read_text())
-        for path, ref in leaves_with_path(target_tree):
-            path_s = path_str(path)
+        shard_of = _shardings_by_path(shardings)
+
+        def load(path_s: str, ref: torch.Tensor):
             meta = manifest["leaves"].get(path_s)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {path_s}")
-            arr = np.load(cdir / meta["file"])
+            sharding = shard_of.get(path_s)
+            arr = np.load(cdir / meta["file"],
+                          mmap_mode="r" if sharding is not None and
+                          not verify else None)
             if verify and _checksum(arr) != meta["sha256_16"]:
                 raise IOError(f"checksum mismatch for {path_s}")
             if tuple(arr.shape) != tuple(ref.shape):
@@ -198,5 +229,16 @@ class CheckpointManager:
                 raise ValueError(
                     f"dtype mismatch {path_s}: ckpt {meta['dtype']} vs "
                     f"{_dtype_name(ref.dtype)}")
+            if sharding is not None:
+                return _dtensor_from(arr, sharding, ref)
             ref.copy_(_from_numpy(arr, ref.dtype))
-        return target_tree
+            return ref
+
+        paths = [path_str(p) for p, _ in leaves_with_path(target_tree)]
+        if not shard_of:
+            for path_s, (_, ref) in zip(paths,
+                                        leaves_with_path(target_tree)):
+                load(path_s, ref)
+            return target_tree
+        it = iter(paths)
+        return tree_map(lambda ref: load(next(it), ref), target_tree)

@@ -254,15 +254,6 @@ def test_resize_round_trip_restores_ownership_and_keeps_rows():
             == kv.stats.parity_tuple())
 
 
-def test_resize_takes_no_explicit_mesh():
-    """One card runs the shards as a loop: an explicit mesh raises,
-    naming the ROADMAP item that ports it."""
-    kv = _port()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-        kv.resize(4, mesh=object())
-    assert kv.resize(4, mesh=None).n_new == 4 and kv.mesh is None
-
-
 def test_restripe_refuses_with_a_dead_shard():
     kv = _port()
     kv.slices.sync(kv.registry)

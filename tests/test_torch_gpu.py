@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel (flat and multi-limb) against
 its plain PyTorch version on the same card inputs, the ``ops`` wrappers
-and the sharded serving path, narrow and wide, the models and a train
-step of each family on ``"cuda"`` against ``"cpu"``.  Every test is marked
+and the sharded serving path, narrow and wide (also on an NCCL world of
+one rank, against the one-device loop), the models and a train step of
+each family on ``"cuda"`` against ``"cpu"``.  Every test is marked
 ``gpu`` and skips when CUDA is absent; on a card run them with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``
 (this file imports no JAX, so it runs where only the port is
@@ -369,6 +370,36 @@ def test_cuda_limb_ops_match_cpu(cuda_device):
     after = launch_counts()
     assert all(after[k] == before[k] + 1 for k in
                ("divisibility_mask_limbs", "factorize_limbs", "gcd_limbs"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_bits", [62, 128])
+def test_cuda_nccl_world_of_one_equals_the_loop(cuda_device, max_bits,
+                                                tmp_path):
+    """A spawned rank in an NCCL world of 1 (the exchange's all-gathers on
+    the card) serves the sharded mix with one shard on its mesh: every
+    counter, log and successor row equal the one-device loop's on the
+    card, ``used_shard_map`` on every refresh, the exchange on NCCL."""
+    import dataclasses
+
+    from torch_mesh_workers import engine_run, engine_summary, run_world
+
+    loop, done, _ = engine_run(ServingEngine, "sharded", 1, max_bits,
+                               device="cuda")
+    assert loop.pages.mesh is None and done == 48
+    got, = run_world("serve_engine", 1, tmp_path,
+                     ("sharded", 1, max_bits, "cuda"), backend="nccl",
+                     device="cuda")
+    want = engine_summary(loop)
+    assert {k: got[k] for k in want} == want
+    assert got["mesh_shape"] == (1, 1)
+    assert got["scans"] and all(
+        s["used_shard_map"] and s["exchange_backend"] == "nccl"
+        and s["exchange_bytes"] > 0 for s in got["scans"])
+    loop_scan = dataclasses.asdict(loop.pages.last_scan)
+    for key in ("n_shards", "local_composites", "cross_composites",
+                "queries_per_shard", "gcd_pairs"):
+        assert got["last_scan"][key] == loop_scan[key], key
 
 
 @pytest.mark.gpu

@@ -1,10 +1,7 @@
-"""The port's boundaries: it imports neither JAX nor the reference, its
-entry points default to the card and raise without one, the parts of
-the reference it does not have yet raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them (wide registries, tenants, dedup and
-every model family no longer do; an explicit mesh still does), and
-``chip_smoke.py`` exits non-zero without a card and names the phase that
-failed."""
+"""The port's boundaries: it imports neither JAX nor the reference (the
+mesh, the sharding rules and the dry-run among its modules), its entry
+points default to the card and raise without one, and ``chip_smoke.py``
+exits non-zero without a card and names the phase that failed."""
 
 import torch_parity  # noqa: F401
 
@@ -80,13 +77,20 @@ training = {"repro_torch.training." + m for m in (
     "optimizer", "compression", "train_loop", "checkpoint", "tree",
     "elastic")} | {"repro_torch.data.pipeline", "repro_torch.launch.train"}
 assert training <= set(names), sorted(training - set(names))
+sharding = {"repro_torch.launch.mesh", "repro_torch.sharding.partition",
+            "repro_torch.launch.dryrun"}
+assert sharding <= set(names), sorted(sharding - set(names))
+import torch.distributed as dist
+assert not dist.is_initialized()        # importing starts no group
 """
 
 
 def test_port_imports_no_jax_and_no_reference():
     """Every ``repro_torch`` module and ``chip_smoke`` import in a process
     where ``import jax`` and ``import repro`` raise, the trace engine's,
-    the model zoo's and the training modules among them."""
+    the model zoo's, the training modules and the mesh, sharding and
+    dry-run modules among them, and importing them starts no process
+    group."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -212,19 +216,6 @@ def test_default_device_needs_a_card(name, monkeypatch, capsys):
         ENTRY_POINTS[name]()
     ENTRY_POINTS[name](device="cpu")
     capsys.readouterr()
-
-
-NOT_PORTED = {
-    "mesh": (lambda: ShardedPagedKVCache(mesh=object(), device="cpu"),
-             "A.8"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_features_raise(name):
-    fn, item = NOT_PORTED[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        fn()
 
 
 @pytest.mark.parametrize("engine", ["ServingEngine", "SlotMachine",

@@ -507,7 +507,7 @@ def test_checkpoint_async_snapshot_is_a_copy(tmp_path):
 
 def test_checkpoint_restores_a_train_state_in_place(tmp_path):
     """A port train state saved and restored into another one of the
-    same model (its own tensors), with ``shardings=`` raising for A.8."""
+    same model (its own tensors)."""
     _, _, _, port = train_pair("qwen2.5-3b")
     mgr = CheckpointManager(tmp_path)
     mgr.save(1, port)
@@ -521,5 +521,3 @@ def test_checkpoint_restores_a_train_state_in_place(tmp_path):
     for a, b in zip(leaves(port), leaves(other)):
         assert torch.equal(a, b)
     assert all(p.requires_grad for p in leaves(other.params))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-        mgr.restore(other, shardings=object())
