@@ -85,12 +85,6 @@ runs also report where their wall time went, ``sharded_time_split``):
                  on a mesh of one rank per shard; per rank
                  ``used_shard_map``, the exchange's backend, seconds and
                  bytes, and the launches;
-  dryrun         ``repro_torch.launch.dryrun`` on ``qwen2.5-3b`` x
-                 ``decode_32k`` x 16x16 (a fake group of 256 ranks) in a
-                 process of its own where importing JAX or the reference
-                 raises, started by ``mesh`` (it needs no card) and waited
-                 for here: its record (``status: "ok"``) on a line of its
-                 own;
   moe            ``repro_torch.cases.case_moe``: smoke against
                  ``BENCH_case_moe.json``, full (4096 experts, 1000 x 8
                  router sets, synthetic router) against ``MOE_FULL``, then
@@ -249,7 +243,17 @@ runs also report where their wall time went, ``sharded_time_split``):
                  held against their plain versions at every shape the
                  tables launched them at; the engine kernels' ``ptxas``
                  lines (registers and static shared memory of each
-                 template instance).
+                 template instance);
+  dryrun         ``repro_torch.launch.dryrun`` on ``DRYRUN_CELLS``:
+                 ``qwen2.5-3b`` x ``decode_32k`` and ``train_4k``,
+                 ``zamba2-7b`` x ``prefill_32k`` on 16x16 (a fake group of
+                 256 ranks), and ``qwen2.5-3b`` x ``decode_32k`` on
+                 2x16x16 (512), each in a process of its own where
+                 importing JAX or the reference raises, started together
+                 by ``mesh`` (they need no card), overlapping every phase
+                 after it, and waited for last:
+                 each record (``status: "ok"``, the ``rules`` that fired)
+                 on a line of its own.
 
 Then the table of the reference's six Pallas kernels, the card's name and
 power limit, the ``kernels`` line (for the flat kernels: launches on the
@@ -1412,7 +1416,7 @@ class Context:
         self.engine_path = {}         # engine kernel -> its table1 launches
         self.engine_builds = None     # the engine kernels' nvcc, running
         self.serving_parity = None    # case_serving full, one-card loop
-        self.dryrun = None            # the dry-run's process, running
+        self.dryrun = []              # the dry-run's processes, running
 
 
 def phase_device(ctx: Context) -> dict:
@@ -1766,8 +1770,15 @@ def phase_elastic(ctx: Context) -> dict:
 MESH_WORLDS = (("nccl1", "nccl", 1), ("serving2", "gloo", 2),
                ("wide2", "gloo", 2), ("elastic4", "gloo", 4))
 MESH_TIMEOUT_S = 300
-#: the ``dryrun`` phase's production cell
-DRYRUN_CELL = ("qwen2.5-3b", "decode_32k")
+#: the ``dryrun`` phase's production cells (arch, shape, multi-pod): a
+#: decode step on 16x16; a train step (every layer recomputed, its
+#: products through the ``@`` rule); a Mamba-2 prefill (the einsum rule);
+#: and a decode step on the multi-pod 2x16x16 mesh
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k", False),
+                ("qwen2.5-3b", "train_4k", False),
+                ("zamba2-7b", "prefill_32k", False),
+                ("qwen2.5-3b", "decode_32k", True))
+DRYRUN_TIMEOUT_S = 540
 DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
 
 
@@ -1921,7 +1932,7 @@ def phase_mesh(ctx: Context) -> dict:
     shard; each rank launched its world's kernels (``mesh_required``) on
     the card and held every kernel it launched against its plain version
     at each shape it launched at (``shapes_checked``)."""
-    ctx.dryrun = start_dryrun()     # host-only: it overlaps the worlds
+    ctx.dryrun = start_dryrun()     # host-only: they overlap what follows
     digest = trail_digest(ctx.serving_trail)
     out = {}
     for kind, backend, ranks in MESH_WORLDS:
@@ -1974,51 +1985,69 @@ sys.exit(dryrun.main(sys.argv[2:]))
 """
 
 
-def start_dryrun() -> subprocess.Popen:
-    """``repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` (the 16x16 mesh: a
-    fake group of 256 ranks) in a process of its own where importing JAX
-    or the reference raises, its output in ``DRYRUN_OUT``."""
-    arch, shape = DRYRUN_CELL
+def _dryrun_log(arch: str, shape: str, multi: bool) -> str:
+    return os.path.join(DRYRUN_OUT, f"{arch}__{shape}__{int(multi)}.log")
+
+
+def start_dryrun() -> list:
+    """``repro_torch.launch.dryrun`` on each of ``DRYRUN_CELLS`` (a fake
+    group of 256 ranks for 16x16, 512 for 2x16x16), each in a process of
+    its own where importing JAX or the reference raises, all started
+    together, their output in ``DRYRUN_OUT``."""
     os.makedirs(DRYRUN_OUT, exist_ok=True)
-    log = open(os.path.join(DRYRUN_OUT, "log.txt"), "w")
-    with log:
-        return subprocess.Popen(
-            [sys.executable, "-c", _DRYRUN, os.path.join(ROOT, "src"),
-             "--arch", arch, "--shape", shape, "--mesh", "single", "--force",
-             "--out", DRYRUN_OUT], cwd=ROOT, stdout=log,
-            stderr=subprocess.STDOUT)
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        with open(_dryrun_log(arch, shape, multi), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _DRYRUN, os.path.join(ROOT, "src"),
+                 "--arch", arch, "--shape", shape,
+                 "--mesh", "multi" if multi else "single", "--force",
+                 "--out", DRYRUN_OUT], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
 
 
 def phase_dryrun(ctx: Context) -> dict:
-    """The dry-run the ``mesh`` phase started (``start_dryrun``), waited
-    for: its record, ``status: "ok"``, printed on a line of its own."""
-    t0 = time.perf_counter()
-    proc, ctx.dryrun = ctx.dryrun, None
-    try:
-        rc = proc.wait(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    waited_s = time.perf_counter() - t0
-    if rc != 0:
-        with open(os.path.join(DRYRUN_OUT, "log.txt")) as f:
-            raise AssertionError(f"dryrun exit {rc}: {f.read()[-3000:]}")
+    """The dry-runs the ``mesh`` phase started (``start_dryrun``), waited
+    for: each cell's record, ``status: "ok"``, with the explicit sharding
+    rules that fired (``rules``), printed on a line of its own."""
     from repro_torch.launch import dryrun
 
-    arch, shape = DRYRUN_CELL
-    path = dryrun.artifact_path(dryrun.Path(DRYRUN_OUT), arch, shape, False)
-    with open(path) as f:
-        rec = json.load(f)
-    if rec.get("status") != "ok":
-        raise AssertionError(f"dryrun {path.name}: {rec.get('error')}")
-    emit({"dryrun_record": {k: v for k, v in rec.items()
-                            if k != "traceback"}})
-    return {"artifact": os.path.relpath(path, ROOT), "status": rec["status"],
-            "waited_s": waited_s, "n_devices": rec["n_devices"],
-            "argument_bytes_per_rank":
-                rec["memory"]["argument_size_in_bytes"],
-            "collectives": rec["collectives"]}
+    t0 = time.perf_counter()
+    procs, ctx.dryrun = ctx.dryrun, []
+    rcs = []
+    try:
+        for proc in procs:
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            rcs.append(proc.wait(timeout=max(left, 1.0)))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    waited_s = time.perf_counter() - t0
+    cells = []
+    for (arch, shape, multi), rc in zip(DRYRUN_CELLS, rcs):
+        if rc != 0:
+            with open(_dryrun_log(arch, shape, multi)) as f:
+                raise AssertionError(f"dryrun {arch} {shape} multi={multi} "
+                                     f"exit {rc}: {f.read()[-3000:]}")
+        path = dryrun.artifact_path(dryrun.Path(DRYRUN_OUT), arch, shape,
+                                    multi)
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("status") != "ok" or not rec.get("rules"):
+            raise AssertionError(f"dryrun {path.name}: {rec.get('error')}")
+        emit({"dryrun_record": {k: v for k, v in rec.items()
+                                if k != "traceback"}})
+        cells.append({"artifact": os.path.relpath(path, ROOT),
+                      "status": rec["status"], "wall_s": rec["wall_s"],
+                      "n_devices": rec["n_devices"],
+                      "argument_bytes_per_rank":
+                          rec["memory"]["argument_size_in_bytes"],
+                      "collectives": rec["collectives"],
+                      "rules": rec["rules"]})
+    return {"waited_s": waited_s, "cells": cells}
 
 
 def phase_moe(ctx: Context) -> dict:
@@ -4214,7 +4243,6 @@ PHASES = [
     ("launcher", phase_launcher),
     ("elastic", phase_elastic),
     ("mesh", phase_mesh),
-    ("dryrun", phase_dryrun),
     ("moe", phase_moe),
     ("model_check", phase_model_check),
     ("model_serving", phase_model_serving),
@@ -4231,6 +4259,7 @@ PHASES = [
     ("launcher_wide", phase_launcher_wide),
     ("engine_check", phase_engine_check),
     ("table1", phase_table1),
+    ("dryrun", phase_dryrun),
 ]
 
 
@@ -4383,9 +4412,10 @@ def main(argv=()) -> int:
     finally:
         if ctx.engine_builds:
             ctx.engine_builds.stop()
-        if ctx.dryrun is not None and ctx.dryrun.poll() is None:
-            ctx.dryrun.kill()
-            ctx.dryrun.wait()
+        for proc in ctx.dryrun:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return 0
 
 

@@ -21,9 +21,9 @@ The port has no compiler to ask, so for each cell this driver:
      each rank's local ops (DTensor desugars every op into local ops and
      collectives first): ``flops`` by ``torch.utils.flop_counter``'s
      formulas on the local ops, ``bytes_accessed`` as the bytes every
-     local op reads and writes, the temporaries from
-     ``torch.distributed._tools.mem_tracker.MemTracker`` (its peak less
-     the arguments), and ``collectives`` as ``{kind: {count, bytes}}``
+     local op reads and writes, the temporaries as the peak of the
+     local storages alive less the arguments, and ``collectives`` as
+     ``{kind: {count, bytes}}``
      (each functional collective's result bytes, the reference's
      measure);  pending reductions (``Partial`` outputs) are resolved at
      the end, so they are counted;
@@ -39,26 +39,47 @@ and place the state, ``compile_s`` the seconds of the traced step;
 ops traced.
 
 Where DTensor's own rules stop, :class:`SpmdRules` supplies explicit ones
-(each a redistribution DTensor would otherwise refuse, and each counted):
-a pending ``Partial`` sum is reduced before an op reads it; a
-normalisation or softmax reads its reduced dims whole; a reshape gathers a
-sharded dim it splits or merges unless that dim leads its group and the
-group's leading result dim splits as evenly (so the backward's inverse
-reshape splits too); the decode cache's per-sequence row write (the
-reference's ``vmap(dynamic_update_slice)``) writes each rank's own rows,
-also where the sequence is split over ranks; the MoE dispatch's
-``bincount`` counts its replicated ids into a fixed number of bins; and
-:func:`register_rules` adds pointwise sharding rules for ``aten.polar``
-and ``aten.view_as_real`` (RoPE's complex rotation).  An
-op with no sharding rule at all raises in DTensor, and the cell records
-``status: "error"`` with the op's name: nothing is replicated in silence.
+(each a redistribution DTensor would otherwise refuse, or a computation
+of its own, and each counted in the artifact's ``rules``, ``{name:
+count}``): a pending ``Partial`` sum is reduced before an op reads it
+(``reduce``); a normalisation or softmax reads its reduced dims whole
+(``norm``, ``softmax``); a reshape gathers a sharded dim it splits or
+merges unless that dim leads its group and the group's leading result dim
+splits as evenly, so the backward's inverse reshape splits too
+(``reshape``); a two-operand einsum runs on each rank's local shards, the
+operands first given compatible placements and the output placed by its
+letters, a summed-away shard left pending (``einsum``: no fold of a
+DTensor, which torch 2.11 refuses where the sharded dim does not lead); an
+``x @ w`` of a 3-D ``x`` folds its leading dims by the reshape rule
+(``matmul``), and ``repeat_interleave`` merges its repeats by it
+(``repeat``); the decode cache's per-sequence row write (the reference's
+``vmap(dynamic_update_slice)``) writes each rank's own rows, also where
+the sequence is split over ranks (``row_write``); the MoE dispatch's
+``bincount`` counts its replicated ids into a fixed number of bins
+(``bincount``); a plain tensor written from DTensors takes their values
+whole (``whole``); an embedding lookup looks up each rank's own ids in
+a table gathered where it is split by rows (``lookup``).
+:func:`register_rules` adds sharding rules for ``aten.polar`` and
+``aten.view_as_real`` (RoPE's complex rotation) and, where the torch at
+hand has none, ``aten.flip`` (a backward op), each counted where it
+runs.  A layer's recompute in the
+backward pass (``remat``) runs under the same rules (``recompute``), and a
+loop that never mixes its batch rows (``models.unroll.batch_local``: the
+sLSTM recurrence) runs on each rank's own rows as plain tensors, its
+inputs gathered whole on the other mesh dims once (``batch_local``): each
+step then costs plain ops, not DTensor dispatches, and the census counts
+every one of them.  An op with no sharding rule at all raises in DTensor,
+and the cell records ``status: "error"`` with the op's name: nothing is
+replicated in silence.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-2b \\
         --shape train_4k --mesh single
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single \\
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
         --jobs 8 --cell-timeout 600      # each cell in a process of its own
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --layers 1 \\
+        --jobs 8                         # every cell at one layer: cheap
 
 ``run_cell(..., smoke=True, mesh_shape=(4, 4))`` traces an arch's smoke
 config on a small fake mesh (the tests' cells).
@@ -67,24 +88,28 @@ config on a small fake mesh (the tests' cells).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import re
 import sys
 import time
 import traceback
+import weakref
+from collections import Counter
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed._tools.mem_tracker import MemTracker
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    register_sharding)
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
+from torch.utils.weak import WeakIdKeyDictionary
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
 
@@ -213,15 +238,30 @@ def mesh_name(multi_pod: bool, mesh_shape=None) -> str:
 # explicit SPMD rules where DTensor's stop                                    #
 # --------------------------------------------------------------------------- #
 
-_RULES_REGISTERED = False
+#: how often each explicit rule fired in the step being traced (a cell
+#: artifact's ``rules``): a redistribution DTensor would otherwise refuse
+#: or make unasked, or a computation of the rule's own
+RULES: Counter = Counter()
+
+#: the aten ops :func:`register_rules` gave a sharding rule, by rule name
+_ATEN_RULES: Dict[Any, str] = {}
+
+
+def _has_strategy(op) -> bool:
+    """Whether this torch's DTensor has a sharding strategy for ``op``."""
+    sp = DTensor._op_dispatcher.sharding_propagator
+    return any(op in getattr(sp, table, {}) for table in (
+        "op_strategy_funcs", "op_to_rules", "op_single_dim_strategy_funcs"))
 
 
 def register_rules() -> None:
-    """Pointwise sharding rules for the complex-number ops RoPE uses
-    (``aten.polar``: two same-shape inputs; ``aten.view_as_real``: a
-    trailing dim of 2 added), which DTensor has none for."""
-    global _RULES_REGISTERED
-    if _RULES_REGISTERED:
+    """Sharding rules for aten ops DTensor has none for: the complex-number
+    ops RoPE uses (``aten.polar``: two same-shape inputs;
+    ``aten.view_as_real``: a trailing dim of 2 added) and, where this torch
+    lacks one (2.11), ``aten.flip`` (``cumsum``'s backward), which keeps a
+    shard on a dim it does not flip and passes a pending sum through.  The
+    census counts each use (``RULES``)."""
+    if _ATEN_RULES:
         return
     aten = torch.ops.aten
 
@@ -235,19 +275,32 @@ def register_rules() -> None:
         return [([Replicate()], [Replicate()])] + [
             ([Shard(d)], [Shard(d)]) for d in range(x.ndim)]
 
-    _RULES_REGISTERED = True
+    _ATEN_RULES.update({aten.polar.default: "polar",
+                        aten.view_as_real.default: "view_as_real"})
+    if not _has_strategy(aten.flip.default):
+        @register_sharding(aten.flip.default)
+        def _flip(x, dims):
+            flipped = {d % x.ndim for d in dims}
+            return [([Replicate()], [Replicate(), None]),
+                    ([Partial()], [Partial(), None])] + [
+                ([Shard(d)], [Shard(d), None]) for d in range(x.ndim)
+                if d not in flipped]
+        _ATEN_RULES[aten.flip.default] = "flip"
 
 
 def _shard_dim(p, ndim: int) -> Optional[int]:
     return p.dim % ndim if isinstance(p, Shard) else None
 
 
-def _redistributed(x, keep) -> Any:
+def _redistributed(x, keep, rule: Optional[str] = None) -> Any:
     """``x`` with every mesh dim where ``keep(placement)`` is false made
-    ``Replicate()`` (a no-op when none is)."""
+    ``Replicate()`` (a no-op when none is; counted under ``rule``, if one
+    is named, when not)."""
     pl = [p if keep(p) else Replicate() for p in x.placements]
     if pl == list(x.placements):
         return x
+    if rule is not None:
+        RULES[rule] += 1
     return x.redistribute(x.device_mesh, pl)
 
 
@@ -255,13 +308,13 @@ def _reduced(x):
     """A DTensor's pending ``Partial`` reductions resolved."""
     if not isinstance(x, DTensor):
         return x
-    return _redistributed(x, lambda p: not p.is_partial())
+    return _redistributed(x, lambda p: not p.is_partial(), "reduce")
 
 
-def _whole_dims(x, dims) -> Any:
+def _whole_dims(x, dims, rule: str) -> Any:
     """``x`` with the tensor dims ``dims`` unsharded (and no Partial)."""
     return _redistributed(x, lambda p: not p.is_partial()
-                          and _shard_dim(p, x.ndim) not in dims)
+                          and _shard_dim(p, x.ndim) not in dims, rule)
 
 
 def _row_write(cache, key, value) -> None:
@@ -275,6 +328,7 @@ def _row_write(cache, key, value) -> None:
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
 
+    RULES["row_write"] += 1
     _, rows = key
     mesh, n = cache.device_mesh, cache.ndim
     vpl, rpl = [], []
@@ -283,10 +337,7 @@ def _row_write(cache, key, value) -> None:
         vpl.append(Replicate() if d in (None, 1) else
                    Shard(0 if d == 0 else d - 1))
         rpl.append(Shard(0) if d == 0 else Replicate())
-    value, rows = (t if isinstance(t, DTensor) else
-                   DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                      run_check=False)
-                   for t in (value, rows))
+    value, rows = (_on_mesh(t, mesh) for t in (value, rows))
     v = value.to(cache.dtype).redistribute(mesh, vpl).to_local()
     r = rows.redistribute(mesh, rpl).to_local()
     local = cache.to_local()
@@ -302,6 +353,29 @@ def _row_write(cache, key, value) -> None:
     local[b, r] = v
 
 
+def _on_mesh(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor replicated."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` from each rank's ``local`` shard,
+    its global strides in the local tensor's order of dims (a permuted
+    local view stays a permuted global one; a broadcast one is made
+    whole)."""
+    if any(st == 0 and n > 1 for st, n in zip(local.stride(), local.shape)):
+        local = local.contiguous()
+    stride, acc = [0] * local.ndim, 1
+    for d in sorted(range(local.ndim), key=lambda d: (local.stride(d), -d)):
+        stride[d] = acc
+        acc *= shape[d]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
+
+
 def _bincount(x, weights=None, minlength=0):
     """``torch.bincount(x, weights, minlength)`` of ids that all lie below
     ``minlength`` (the MoE dispatch's per-expert counts): ``x`` (and
@@ -309,6 +383,7 @@ def _bincount(x, weights=None, minlength=0):
     ``minlength`` bins on every rank.  (DTensor has no rule for it: its
     output length depends on the values, which the dry-run's tensors do
     not hold.)"""
+    RULES["bincount"] += 1
     mesh = x.device_mesh
     ids = _redistributed(x, lambda p: False).to_local()
     w = (torch.ones_like(ids) if weights is None else
@@ -379,7 +454,7 @@ def _reshapeable(x, shape):
         leads, lead_d = lead[d]
         return (leads and lead_d is not None and src[d] % ranks[d] == 0
                 and dst[lead_d] % ranks[d] == 0)
-    return _redistributed(x, keep)
+    return _redistributed(x, keep, "reshape")
 
 
 class _RuleReshape(torch.autograd.Function):
@@ -396,11 +471,231 @@ class _RuleReshape(torch.autograd.Function):
         return _reshapeable(g, ctx.src).reshape(ctx.src), None
 
 
+def _rule_reshape(x, shape):
+    """``x.reshape(shape)`` under the reshape rule, both ways."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RuleReshape.apply(x, tuple(shape))
+    return _reshapeable(x, tuple(shape)).reshape(shape)
+
+
+def _matmul(x, w):
+    """``x @ w`` for an ``x`` of three or more dims and a 2-D ``w``: the
+    leading dims of ``x`` folded by the reshape rule (``matmul`` folds
+    them below it, where torch 2.11's DTensor refuses a sharded dim that
+    does not lead), a 2-D product, and the fold undone by the rule."""
+    RULES["matmul"] += 1
+    lead = tuple(x.shape[:-1])
+    y = _rule_reshape(x, (math.prod(lead), x.shape[-1])) @ w
+    return _rule_reshape(y, lead + (w.shape[-1],))
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[ids]`` of placements :func:`_lookup` made compatible: each
+    rank looks its own ids up in its local table (its rows whole, its
+    columns perhaps split), and the rows' gradient is a local scatter-add,
+    pending a sum over the mesh dims that split the ids."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        local_ids = ids.to_local().long()
+        ctx.save_for_backward(local_ids)
+        ctx.table = (tuple(table.to_local().shape), table.shape, table.dtype)
+        ctx.pl = [Shard(ids.ndim) if p == Shard(1) else q
+                  for p, q in zip(table.placements, ids.placements)]
+        ctx.grad_pl = [p if p == Shard(1) else
+                       Replicate() if q == Replicate() else Partial()
+                       for p, q in zip(table.placements, ids.placements)]
+        rows = table.to_local()[local_ids]
+        return _from_local(rows, table.device_mesh, ctx.pl,
+                           tuple(ids.shape) + tuple(table.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (local_ids,) = ctx.saved_tensors
+        local_shape, shape, dtype = ctx.table
+        mesh = g.device_mesh
+        g = g.redistribute(mesh, ctx.pl).to_local()
+        grad = torch.zeros(local_shape, dtype=dtype, device=g.device)
+        grad.index_put_((local_ids,), g.to(dtype), accumulate=True)
+        return _from_local(grad, mesh, ctx.grad_pl, shape), None
+
+
+def _lookup(table, ids):
+    """``table[ids]`` (an embedding lookup), each rank looking up its own
+    ids (torch 2.11's DTensor has no strategy for ids split over two mesh
+    dims, and its backward's ``index_put`` refuses a sharded table): on a
+    mesh dim that splits the table's columns and not the ids, the output's
+    last dim is split the same way; the table is gathered where it is
+    split by rows (as torch 2.11's DTensor gathers it) or where the ids
+    are split too (the batch kept split, the weights gathered)."""
+    RULES["lookup"] += 1
+    mesh = table.device_mesh
+    ids = _reduced(_on_mesh(ids, mesh))
+    keep = [p if type(p) is Shard else Replicate() for p in ids.placements]
+    if keep != list(ids.placements):
+        ids = ids.redistribute(mesh, keep)
+    whole = [p if p == Shard(1) and q == Replicate() else Replicate()
+             for p, q in zip(table.placements, ids.placements)]
+    if whole != list(table.placements):
+        table = table.redistribute(mesh, whole)
+    return _Lookup.apply(table, ids)
+
+
+def _repeat_interleave(x, repeats, dim=None, *, output_size=None):
+    """``x.repeat_interleave(repeats, dim)`` for an int ``repeats``: each
+    slice along ``dim`` broadcast ``repeats`` times on a new dim after it,
+    and the two dims merged by the reshape rule (``repeat_interleave``
+    merges them below it, where the backward's split of a sharded merged
+    dim is refused when the split does not divide), or ``None``."""
+    if not isinstance(repeats, int) or dim is None:
+        return None
+    RULES["repeat"] += 1
+    d = dim % x.ndim
+    shape = list(x.shape)
+    y = x.unsqueeze(d + 1).expand(*shape[:d + 1], repeats, *shape[d + 1:])
+    shape[d] *= repeats
+    return _rule_reshape(y, tuple(shape))
+
+
+def _einsum_terms(eq: str, a, b):
+    """``eq``'s operand and output subscripts when it is a two-operand
+    einsum of letters the rule handles (no ellipsis, no repeated letter,
+    every shared letter the same size on both sides), else ``None``."""
+    if "->" not in eq or "." in eq:
+        return None
+    lhs, out = eq.replace(" ", "").split("->")
+    terms = lhs.split(",")
+    if len(terms) != 2:
+        return None
+    sa, sb = terms
+    if any(len(set(t)) != len(t) for t in (sa, sb, out)):
+        return None
+    if len(sa) != a.ndim or len(sb) != b.ndim:
+        return None
+    if any(a.shape[sa.index(c)] != b.shape[sb.index(c)]
+           for c in set(sa) & set(sb)):
+        return None
+    return sa, sb, out
+
+
+def _letter(p, sub: str) -> Optional[str]:
+    d = _shard_dim(p, len(sub)) if type(p) is Shard else None
+    return sub[d] if d is not None else None
+
+
+def _einsum_placements(sa, sb, so, a, b):
+    """The placements both operands take for a local einsum, and its
+    output's: on each mesh dim an operand sharded on a letter the other
+    also has makes the other shard it too (a local slice), two operands
+    sharded on different letters leave the smaller one whole there; then
+    a letter of the output sharded stays a shard of the output, a letter
+    summed away leaves a pending sum."""
+    pa, pb, po = [], [], []
+    small_a = a.numel() <= b.numel()
+    for p, q in zip(a.placements, b.placements):
+        la, lb = _letter(p, sa), _letter(q, sb)
+        if p != Replicate() and la is None:        # a strided shard
+            p, la = Replicate(), None
+        if q != Replicate() and lb is None:
+            q, lb = Replicate(), None
+        if la is not None and lb is not None and la != lb:
+            if small_a:
+                p, la = Replicate(), None
+            else:
+                q, lb = Replicate(), None
+        if la is None and lb is not None and lb in sa:
+            p, la = Shard(sa.index(lb)), lb
+        elif lb is None and la is not None and la in sb:
+            q, lb = Shard(sb.index(la)), la
+        c = la if la is not None else lb
+        pa.append(p)
+        pb.append(q)
+        po.append(Replicate() if c is None else
+                  Shard(so.index(c)) if c in so else Partial())
+    return pa, pb, po
+
+
+def _einsum_grad(s_out: str, s_other: str, s_want: str, g, other, shape):
+    """The gradient of an einsum operand of subscripts ``s_want`` and
+    (local) ``shape`` from the output's gradient ``g`` and the other
+    operand: letters of the operand alone were summed away, so their
+    gradient is broadcast back."""
+    keep = "".join(c for c in s_want if c in s_out or c in s_other)
+    grad = torch.einsum(f"{s_out},{s_other}->{keep}", g, other.to(g.dtype))
+    for i, c in enumerate(s_want):
+        if c not in keep:
+            grad = grad.unsqueeze(i)
+    return grad.expand(shape)
+
+
+class _LocalEinsum(torch.autograd.Function):
+    """A two-operand einsum of placements :func:`_einsum_placements` made
+    compatible, computed on each rank's local shards (no fold of a DTensor,
+    so no refused flatten), its output and gradients placed by the same
+    letters."""
+
+    @staticmethod
+    def forward(ctx, terms, a, b, po):
+        sa, sb, so = terms
+        ctx.terms, ctx.po = terms, po
+        ctx.save_for_backward(a, b)
+        size = {c: n for t, x in ((sa, a), (sb, b))
+                for c, n in zip(t, x.shape)}
+        out = torch.einsum(f"{sa},{sb}->{so}", a.to_local(), b.to_local())
+        return _from_local(out, a.device_mesh, po,
+                           tuple(size[c] for c in so))
+
+    @staticmethod
+    def backward(ctx, g):
+        sa, sb, so = ctx.terms
+        a, b = ctx.saved_tensors
+        mesh = a.device_mesh
+        g = _on_mesh(g, mesh).redistribute(
+            mesh, [Replicate() if p.is_partial() else p for p in ctx.po])
+        gl = g.to_local()
+        grads = []
+        for x, s, other, s_other, need in (
+                (a, sa, b, sb, ctx.needs_input_grad[1]),
+                (b, sb, a, sa, ctx.needs_input_grad[2])):
+            if not need:
+                grads.append(None)
+                continue
+            local = _einsum_grad(so, s_other, s, gl, other.to_local(),
+                                 x.to_local().shape).to(x.dtype)
+            pl = [p if p != Replicate() else
+                  Partial() if q != Replicate() else p
+                  for p, q in zip(x.placements, other.placements)]
+            grads.append(_from_local(local, mesh, pl, x.shape))
+        return None, grads[0], grads[1], None
+
+
+def _einsum(eq, *operands):
+    """``torch.einsum(eq, a, b)`` on local shards (:class:`_LocalEinsum`),
+    or ``None`` for an einsum the rule does not handle."""
+    if len(operands) != 2:
+        return None
+    a, b = (_reduced(t) for t in operands)
+    mesh = next(t.device_mesh for t in (a, b) if isinstance(t, DTensor))
+    a, b = _on_mesh(a, mesh), _on_mesh(b, mesh)
+    terms = _einsum_terms(eq, a, b)
+    if terms is None or a.dtype != b.dtype:
+        return None
+    RULES["einsum"] += 1
+    pa, pb, po = _einsum_placements(*terms, a, b)
+    if pa != list(a.placements):
+        a = a.redistribute(mesh, pa)
+    if pb != list(b.placements):
+        b = b.redistribute(mesh, pb)
+    return _LocalEinsum.apply(terms, a, b, po)
+
+
 _NORMS = {torch.rms_norm, F.rms_norm, torch.layer_norm, F.layer_norm}
 _SOFTMAXES = {torch.softmax, torch.Tensor.softmax, F.softmax,
               torch.log_softmax, torch.Tensor.log_softmax, F.log_softmax}
 _RESHAPES = {torch.reshape, torch.Tensor.reshape, torch.Tensor.view}
 _BINCOUNTS = {torch.bincount, torch.Tensor.bincount}
+_MATMULS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__}
+_REPEATS = {torch.repeat_interleave, torch.Tensor.repeat_interleave}
 
 
 def _writes_first(func) -> bool:
@@ -431,6 +726,7 @@ def _whole(x):
     """A DTensor's value replicated, as the local tensor every rank holds."""
     if not isinstance(x, DTensor):
         return x
+    RULES["whole"] += 1
     return _Whole.apply(_redistributed(x, lambda p: False))
 
 
@@ -440,6 +736,11 @@ class SpmdRules(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func is torch.einsum and not kwargs and any(
+                isinstance(t, DTensor) for t in args[1:]):
+            out = _einsum(*args)
+            if out is not None:
+                return out
         if (func is torch.Tensor.__setitem__ and isinstance(args[0], DTensor)
                 and isinstance(args[1], tuple) and len(args[1]) == 2
                 and all(isinstance(k, torch.Tensor) for k in args[1])):
@@ -456,21 +757,106 @@ class SpmdRules(TorchFunctionMode):
         rest = args[1:]
         if func in _BINCOUNTS:
             return _bincount(x, *rest, **kwargs)
+        if (func is torch.Tensor.__getitem__ and x.ndim == 2 and rest
+                and isinstance(rest[0], torch.Tensor)
+                and not rest[0].is_floating_point()
+                and rest[0].dtype != torch.bool):
+            return _lookup(x, rest[0])
+        if func in _REPEATS:
+            out = _repeat_interleave(x, *rest, **kwargs)
+            if out is not None:
+                return out
+        if (func in _MATMULS and x.ndim >= 3 and rest
+                and isinstance(rest[0], torch.Tensor) and rest[0].ndim == 2):
+            return _matmul(x, rest[0])
         if func in _NORMS:
             shape = rest[0] if rest else kwargs["normalized_shape"]
-            x = _whole_dims(x, set(range(x.ndim - len(shape), x.ndim)))
+            x = _whole_dims(x, set(range(x.ndim - len(shape), x.ndim)),
+                            "norm")
         elif func in _SOFTMAXES:
             d = rest[0] if rest else kwargs["dim"]
-            x = _whole_dims(x, {d % x.ndim})
+            x = _whole_dims(x, {d % x.ndim}, "softmax")
         elif func in _RESHAPES:
             shape = rest[0] if len(rest) == 1 and not isinstance(
                 rest[0], int) else rest
             if isinstance(shape, torch.dtype):
                 return func(x, *rest, **kwargs)
-            if torch.is_grad_enabled() and x.requires_grad:
-                return _RuleReshape.apply(x, tuple(shape))
-            x = _reshapeable(x, tuple(shape))
+            return _rule_reshape(x, tuple(shape))
         return func(x, *rest, **kwargs)
+
+
+@contextlib.contextmanager
+def _under_rules():
+    """The rules and DTensor's implicit replication, as a traced step's
+    forward runs under them; a layer's recompute in the backward pass
+    enters this (``models.layers.recompute_under``), counted as
+    ``recompute``."""
+    RULES["recompute"] += 1
+    with SpmdRules(), implicit_replication():
+        yield
+
+
+def _batch_local(fn, args, batch_dims, local: bool = True):
+    """``models.unroll.batch_local``'s computation (its batch rows never
+    mix) run on each rank's own rows: the mesh dims that shard the first
+    DTensor argument's batch dim shard every argument's batch dim, and
+    every other mesh dim holds every argument whole (gathered once, here,
+    not in each step of a loop).  Then ``fn`` runs on the local shards, as
+    plain tensors, so a recurrence's steps cost plain ops rather than
+    DTensor dispatches (the census still counts each); an argument without
+    a batch dim gets back a gradient pending a sum over the batch's mesh
+    dims.  ``local=False`` runs ``fn`` on the placed DTensors instead, op
+    by op (the census of the two agrees)."""
+    RULES["batch_local"] += 1
+    lead = next(a for a, d in zip(args, batch_dims)
+                if isinstance(a, DTensor) and d is not None)
+    mesh = lead.device_mesh
+    bd = batch_dims[list(args).index(lead)]
+    on_batch = [type(p) is Shard and p.dim % lead.ndim == bd
+                for p in _reduced(lead).placements]
+    placed, grads = [], []
+    for a, d in zip(args, batch_dims):
+        a = _reduced(_on_mesh(a, mesh))
+        pl = [Shard(d) if d is not None and sharded else Replicate()
+              for sharded in on_batch]
+        if pl != list(a.placements):
+            a = a.redistribute(mesh, pl)
+        placed.append(a)
+        grads.append([p if d is not None or not sharded else Partial()
+                      for p, sharded in zip(pl, on_batch)])
+    out_pl = [Shard(0) if sharded else Replicate() for sharded in on_batch]
+    if local:
+        locals_ = [a.to_local(grad_placements=g)
+                   for a, g in zip(placed, grads)]
+        with torch._C.DisableTorchFunction():  # plain tensors: no rule applies
+            outs = fn(*locals_)
+        rows = lead.shape[bd]
+
+        def wrap(o):
+            return _from_local(o, mesh, out_pl, (rows,) + tuple(o.shape[1:]))
+    else:
+        outs = fn(*[_GradAs.apply(a, g) for a, g in zip(placed, grads)])
+
+        def wrap(o):
+            return _GradAs.apply(o, out_pl)
+    return tuple(map(wrap, outs)) if isinstance(outs, tuple) else wrap(outs)
+
+
+class _GradAs(torch.autograd.Function):
+    """A DTensor as it is, whose gradient is redistributed to
+    ``placements`` (what ``to_local(grad_placements=...)`` and
+    ``from_local`` give the local run's)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = list(placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if list(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
 
 
 # --------------------------------------------------------------------------- #
@@ -513,14 +899,55 @@ _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty",
 _ROW_WRITES = {"index_put_"}
 
 
+def _fresh_outputs(func) -> bool:
+    """Whether ``func`` returns only new tensors (no view, no write into
+    an argument), so that its outputs depend on its inputs' shapes alone
+    on "meta"."""
+    sch = func._schema
+    return (not sch.is_mutable and bool(sch.returns)
+            and all(r.alias_info is None and str(r.type) == "Tensor"
+                    for r in sch.returns))
+
+
+def _signature(x):
+    """A hashable key of an op argument: a "meta" tensor by its shape,
+    strides and dtype, a scalar or a sequence by value; ``None`` for what
+    has no such key (a tensor elsewhere, an object)."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta" or isinstance(x, DTensor):
+            return None
+        return ("T", tuple(x.shape), x.stride(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        keys = tuple(_signature(v) for v in x)
+        return None if None in keys else ("L", keys)
+    if x is None or isinstance(x, (bool, int, float, str, torch.dtype,
+                                   torch.device, torch.memory_format,
+                                   torch.layout)):
+        return ("V", type(x).__name__, x)
+    return None
+
+
+def _tensors(out) -> List[torch.Tensor]:
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [t for t in outs if isinstance(t, torch.Tensor)]
+
+
 class Census(TorchDispatchMode):
     """Per-rank counts of the local ops a traced step runs (it lets
     DTensor desugar every op first, and skips DTensor's shape propagation
     on global shapes): FLOPs by ``torch.utils.flop_counter``'s formulas,
     the bytes each op reads and writes (each input as memory holds it,
     each output once; views and allocations move none; a row write moves
-    its rows), and the functional collectives' count and result bytes by
-    kind."""
+    its rows), the functional collectives' count and result bytes by
+    kind, and the peak of the "meta" storages alive (:meth:`track` the
+    arguments first).
+
+    An op that returns new tensors runs once for each signature (the op
+    and its arguments' shapes, strides, dtypes and scalars): a later call
+    of the same signature gets new empty tensors of the first's shapes,
+    strides and dtypes, which is all a meta kernel computes, and the
+    first's counts (torch's meta kernels run in Python, 0.05-0.7 ms an
+    op; a recurrence's steps repeat their signatures)."""
 
     def __init__(self):
         super().__init__()
@@ -528,16 +955,51 @@ class Census(TorchDispatchMode):
         self.bytes_accessed = 0
         self.ops = 0
         self.collectives: Dict[str, Dict[str, int]] = {}
+        self.live = self.peak = 0
+        self._held = WeakIdKeyDictionary()
+        self._fresh: Dict[Any, bool] = {}
+        self._seen: Dict[Any, tuple] = {}
+
+    def track(self, *tensors) -> None:
+        """Count ``tensors``' storages as alive (a step's arguments)."""
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.device.type == "meta":
+                st = t.untyped_storage()
+                if st not in self._held:
+                    self._held[st] = True
+                    n = st.nbytes()
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(st, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def _price(self, func, args, kwargs, out) -> Tuple[int, int]:
+        name = func.__name__.split(".")[0]
+        flops = 0
+        if func._overloadpacket in flop_registry:
+            flops = int(flop_registry[func._overloadpacket](
+                *args, **kwargs, out_val=out))
+        if name in _ROW_WRITES:
+            moved = _moved_bytes((args[1:], kwargs)) + _moved_bytes(args[2])
+        elif func.is_view or name in _NO_TRAFFIC:
+            moved = 0
+        else:
+            moved = _moved_bytes((args, kwargs)) + _moved_bytes(out)
+        return flops, moved
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
+            if func in _ATEN_RULES:
+                RULES[_ATEN_RULES[func]] += 1
             return NotImplemented
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         if _propagating():
-            return out
-        name = func.__name__.split(".")[0]
+            return func(*args, **kwargs)
         if func.namespace == "_c10d_functional":
+            out = func(*args, **kwargs)
+            name = func.__name__.split(".")[0]
             if name not in _NOT_COLLECTIVES:
                 d = self.collectives.setdefault(
                     COLLECTIVE_KINDS.get(name, name), {"count": 0, "bytes": 0})
@@ -545,29 +1007,30 @@ class Census(TorchDispatchMode):
                 d["bytes"] += _nbytes(out)
             return out
         self.ops += 1
-        if func._overloadpacket in flop_registry:
-            self.flops += int(flop_registry[func._overloadpacket](
-                *args, **kwargs, out_val=out))
-        if name in _ROW_WRITES:
-            self.bytes_accessed += _moved_bytes((args[1:], kwargs)) \
-                + _moved_bytes(args[2])
-        elif not func.is_view and name not in _NO_TRAFFIC:
-            self.bytes_accessed += _moved_bytes((args, kwargs)) \
-                + _moved_bytes(out)
+        fresh = self._fresh.get(func)
+        if fresh is None:
+            fresh = self._fresh[func] = _fresh_outputs(func)
+        key = (func, _signature(args), _signature(tuple(
+            sorted(kwargs.items())))) if fresh else (None,)
+        seen = None if None in key else self._seen.get(key)
+        if seen is None:
+            out = func(*args, **kwargs)
+            flops, moved = self._price(func, args, kwargs, out)
+            if None not in key and all(t.device.type == "meta"
+                                       for t in _tensors(out)):
+                self._seen[key] = (isinstance(out, tuple), [
+                    (tuple(t.shape), t.stride(), t.dtype)
+                    for t in _tensors(out)], flops, moved)
+        else:
+            many, shapes, flops, moved = seen
+            outs = tuple(torch.empty_strided(shape, stride, dtype=dtype,
+                                             device="meta")
+                         for shape, stride, dtype in shapes)
+            out = outs if many else outs[0]
+        self.flops += flops
+        self.bytes_accessed += moved
+        self.track(*_tensors(out))
         return out
-
-
-class LocalMemTracker(MemTracker):
-    """``MemTracker`` seeing each rank's local ops (DTensor desugars
-    first, and its shape propagation is skipped), so its peak is one
-    rank's."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented
-        if _propagating():
-            return func(*args, **(kwargs or {}))
-        return super().__torch_dispatch__(func, types, args, kwargs)
 
 
 # --------------------------------------------------------------------------- #
@@ -683,6 +1146,8 @@ def trace_cell(arch_id: str, shape_name: str, multi_pod: bool,
                layer_override: Optional[int] = None, variant: str = "base",
                smoke: bool = False, mesh_shape=None) -> Dict[str, Any]:
     """The census of one cell's step (the ``ok`` record's fields)."""
+    from repro_torch.models.layers import recompute_under
+    from repro_torch.models.unroll import batch_local_by
     from repro_torch.sharding.partition import local_bytes
 
     register_rules()
@@ -701,17 +1166,12 @@ def trace_cell(arch_id: str, shape_name: str, multi_pod: bool,
         placed = tuple(place(a, s) for a, s in zip(args, shardings))
     t_lower = time.time() - t0
     census = Census()
-    mem = LocalMemTracker()
-    mem.track_external(*[t for a in placed for t in _local_tensors(a)])
-    with SpmdRules(), implicit_replication(), mem, census:
+    census.track(*[t for a in placed for t in _local_tensors(a)])
+    RULES.clear()
+    with SpmdRules(), implicit_replication(), census, \
+            recompute_under(_under_rules), batch_local_by(_batch_local):
         out_locals = _resolve_outputs(step(*placed))
     t_compile = time.time() - t0 - t_lower
-    # the local shards live on "meta"; an entry on the mesh's device type
-    # ("cpu") is DTensor wrappers at their global size, which some torch
-    # versions' tracker counts (2.11: 77.3 GB for qwen2.5-3b's decode
-    # cache), not one rank's bytes
-    peak_total = mem.get_tracker_snapshot("peak").get(
-        torch.device("meta"), {}).get("Total", 0)
     out_bytes = sum(t.numel() * t.element_size() for t in out_locals
                     if isinstance(t, torch.Tensor))
     n_dev = mesh.size()
@@ -719,10 +1179,11 @@ def trace_cell(arch_id: str, shape_name: str, multi_pod: bool,
         lower_s=round(t_lower, 1), compile_s=round(t_compile, 1),
         n_devices=n_dev, flops=float(census.flops),
         bytes_accessed=float(census.bytes_accessed),
-        memory={"temp_size_in_bytes": max(peak_total - arg_bytes, 0),
+        memory={"temp_size_in_bytes": max(census.peak - arg_bytes, 0),
                 "argument_size_in_bytes": arg_bytes,
                 "output_size_in_bytes": out_bytes},
-        collectives=census.collectives, hlo_bytes=None, ops=census.ops)
+        collectives=census.collectives, rules=dict(sorted(RULES.items())),
+        hlo_bytes=None, ops=census.ops)
 
 
 def artifact_path(out_dir: Path, arch_id: str, shape_name: str,
@@ -791,12 +1252,13 @@ def _run_jobs(todo, meshes, out_dir: Path, args) -> int:
         nonlocal n_ok, n_fail
         arch_id, shape_name, mp = cell
         path = artifact_path(out_dir, arch_id, shape_name, mp,
+                             layer_override=args.layers,
                              variant=args.variant)
         rec = json.loads(path.read_text()) if path.exists() else {}
         if killed or rec.get("status") != "ok":
             if killed:
                 rec = {"arch": arch_id, "shape": shape_name,
-                       "mesh": mesh_name(mp), "layer_override": None,
+                       "mesh": mesh_name(mp), "layer_override": args.layers,
                        "variant": args.variant, "smoke": False,
                        "status": "error",
                        "error": f"timeout: not traced in "
@@ -817,6 +1279,8 @@ def _run_jobs(todo, meshes, out_dir: Path, args) -> int:
                    "--arch", arch_id, "--shape", shape_name,
                    "--mesh", "multi" if mp else "single",
                    "--variant", args.variant, "--out", str(out_dir)]
+            if args.layers is not None:
+                cmd += ["--layers", str(args.layers)]
             if args.force:
                 cmd.append("--force")
             running.append((subprocess.Popen(
@@ -838,6 +1302,65 @@ def _run_jobs(todo, meshes, out_dir: Path, args) -> int:
     return 1 if n_fail else 0
 
 
+_KINDS = {"all-gather": "ag", "all-reduce": "ar", "reduce-scatter": "rs",
+          "all-to-all": "a2a"}
+
+
+def cell_table(out_dir: Path, variant: str = "base") -> str:
+    """A markdown table of the artifacts in ``out_dir``: one row for each
+    (arch, shape), its 16x16 and 2x16x16 values as ``single / multi``:
+    status, wall seconds, FLOPs, bytes accessed, argument and temporary
+    GB a rank, collectives by kind (count) and the rules that fired."""
+    recs: Dict[Tuple[str, str], Dict[bool, dict]] = {}
+    for path in sorted(Path(out_dir).glob(f"*{ARTIFACT_SUFFIX}.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("variant") != variant or rec.get("layer_override") \
+                or rec.get("smoke"):
+            continue
+        recs.setdefault((rec["arch"], rec["shape"]), {})[
+            rec["mesh"] == mesh_name(True)] = rec
+
+    def pair(cell, fn):
+        return " / ".join(fn(cell[m]) if m in cell else "-"
+                          for m in (False, True))
+
+    def num(key, scale=1.0, fmt="{:.4g}"):
+        return lambda r: (fmt.format(_get(r, key) / scale)
+                          if r.get("status") == "ok" else "-")
+
+    def coll(r):
+        return ", ".join(f"{_KINDS.get(k, k)} {v['count']}"
+                         for k, v in sorted(r.get("collectives", {}).items()))
+
+    def rules(cell):
+        names = sorted({n for r in cell.values() for n in r.get("rules", {})})
+        out = []
+        for n in names:
+            c = [str(cell[m].get("rules", {}).get(n, 0)) if m in cell
+                 else "-" for m in (False, True)]
+            out.append(f"{n} {c[0]}" if c[0] == c[1] else
+                       f"{n} {c[0]}/{c[1]}")
+        return ", ".join(out)
+    lines = ["| arch | shape | status | wall s | FLOPs a rank | bytes "
+             "accessed a rank | arguments GB | temporaries GB | "
+             "collectives | rules |", "|" + "---|" * 10]
+    for (arch, shape), cell in sorted(recs.items()):
+        lines.append("| " + " | ".join([
+            arch, shape, pair(cell, lambda r: r["status"]),
+            pair(cell, lambda r: str(r.get("wall_s"))),
+            pair(cell, num("flops")), pair(cell, num("bytes_accessed")),
+            pair(cell, num("memory.argument_size_in_bytes", 1e9, "{:.3f}")),
+            pair(cell, num("memory.temp_size_in_bytes", 1e9, "{:.2f}")),
+            pair(cell, coll), rules(cell)]) + " |")
+    return "\n".join(lines)
+
+
+def _get(rec: dict, key: str):
+    for part in key.split("."):
+        rec = rec[part]
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -849,12 +1372,18 @@ def main(argv=None):
     ap.add_argument("--probes", action="store_true",
                     help="run the two reduced-layer probe traces per cell "
                          "(single-pod) used to reconstruct per-layer costs")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="trace each cell at this many layers (its probe "
+                         "config: a cheap search for the ops that fail)")
     ap.add_argument("--variant", default="base", choices=["base", "opt"],
                     help="'opt' applies the optimized settings")
     ap.add_argument("--out", default=str(ARTIFACT_DIR))
     ap.add_argument("--jobs", type=int, default=1,
                     help="trace this many cells at once, each in a process "
                          "of its own (1: in this process, in turn)")
+    ap.add_argument("--table", action="store_true",
+                    help="print the markdown table of the artifacts in "
+                         "--out (cell_table) and exit")
     ap.add_argument("--cell-timeout", type=float, default=None,
                     help="with --jobs: seconds a cell's process may take "
                          "before it is killed and the cell recorded as an "
@@ -864,6 +1393,9 @@ def main(argv=None):
     from repro_torch.configs import cells, get_config
 
     out_dir = Path(args.out)
+    if args.table:
+        print(cell_table(out_dir, args.variant))
+        return 0
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[
         args.mesh]
 
@@ -891,7 +1423,7 @@ def main(argv=None):
             continue
         for mp in meshes:
             rec = run_cell(arch_id, shape_name, mp, out_dir, args.force,
-                           variant=args.variant)
+                           layer_override=args.layers, variant=args.variant)
             if rec.get("status") == "ok":
                 n_ok += 1
             else:

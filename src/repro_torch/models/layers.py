@@ -15,9 +15,10 @@ bfloat16 (:func:`mm`, :func:`unembed`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, ContextManager, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -68,17 +69,46 @@ class ParamTree(nn.Module):
         return list(self._parameters) + list(self._modules)
 
 
+#: what a recompute runs under: ``None`` (as it is), or a function giving
+#: a fresh context manager for each recompute (set by
+#: :func:`recompute_under` while a tracer's rules must hold there too)
+_RECOMPUTE_CONTEXT: Optional[Callable[[], ContextManager]] = None
+
+
+@contextlib.contextmanager
+def recompute_under(make_context: Callable[[], ContextManager]):
+    """Within this block, every :func:`remat` body's recompute in the
+    backward pass runs under ``make_context()``, as its forward ran under
+    whatever context its caller had (``repro_torch.launch.dryrun``'s
+    sharding rules: the backward, and so the recompute, runs outside
+    them otherwise)."""
+    global _RECOMPUTE_CONTEXT
+    before, _RECOMPUTE_CONTEXT = _RECOMPUTE_CONTEXT, make_context
+    try:
+        yield
+    finally:
+        _RECOMPUTE_CONTEXT = before
+
+
 def remat(fn, cfg, policies=("full", "dots")):
     """``fn`` (a layer body) recomputed in the backward pass when
     ``cfg.remat`` is one of ``policies`` (``jax.checkpoint`` in the
     reference): ``torch.utils.checkpoint.checkpoint`` without reentry,
     which saves the body's inputs only.  ``"dots"`` (the reference saves
     the matmuls' outputs without batch dimensions) saves nothing more in
-    the port: it recomputes as ``"full"`` does."""
+    the port: it recomputes as ``"full"`` does.  Inside
+    :func:`recompute_under`, the recompute runs under its context."""
     if cfg.remat not in policies:
         return fn
-    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
-                             use_reentrant=False)
+
+    def body(*args, **kwargs):
+        make = _RECOMPUTE_CONTEXT
+        if make is not None:
+            kwargs["context_fn"] = lambda: (contextlib.nullcontext(), make())
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+    return body
 
 
 # --------------------------------------------------------------------------- #

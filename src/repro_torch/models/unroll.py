@@ -3,16 +3,19 @@
 The reference runs layer stacks and query chunks under ``lax.scan`` and
 unrolls them for its cost probes.  The port runs eagerly, so a scan is
 always a loop over the leading axis; the helper is kept so that each
-scan site of the reference has its counterpart here.
+scan site of the reference has its counterpart here.  :func:`batch_local`
+marks a loop whose batch rows never mix, so that a tracer may run it on
+each rank's own rows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+import contextlib
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-__all__ = ["scan_or_unroll"]
+__all__ = ["scan_or_unroll", "batch_local", "batch_local_by"]
 
 
 def scan_or_unroll(body: Callable, carry: Any, xs: Sequence,
@@ -34,3 +37,32 @@ def scan_or_unroll(body: Callable, carry: Any, xs: Sequence,
     if isinstance(ys[0], tuple):
         return carry, tuple(torch.stack(parts, 0) for parts in zip(*ys))
     return carry, torch.stack(ys, 0)
+
+
+#: how :func:`batch_local` runs its computation: ``None`` (directly), or
+#: a runner installed by :func:`batch_local_by`
+_RUNNER: Optional[Callable] = None
+
+
+def batch_local(fn: Callable, args: Sequence, batch_dims: Sequence):
+    """``fn(*args)``, a computation that never mixes the rows of its batch
+    (a recurrence over time): ``batch_dims`` gives each argument's batch
+    dim (``None`` for an argument every row shares), and each output's
+    batch dim is its first.  Inside :func:`batch_local_by` its runner
+    runs it instead, with the same arguments (a tracer's, which runs it on
+    each rank's own rows)."""
+    if _RUNNER is None:
+        return fn(*args)
+    return _RUNNER(fn, args, batch_dims)
+
+
+@contextlib.contextmanager
+def batch_local_by(runner: Callable):
+    """Within this block :func:`batch_local` calls ``runner(fn, args,
+    batch_dims)``."""
+    global _RUNNER
+    before, _RUNNER = _RUNNER, runner
+    try:
+        yield
+    finally:
+        _RUNNER = before

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from .layers import F32, _dtype, dense, dense_init, init_rmsnorm, mm, rms_norm
 from .ssm import _causal_conv, softplus
-from .unroll import scan_or_unroll
+from .unroll import batch_local, scan_or_unroll
 
 Params = Dict[str, Any]
 
@@ -237,14 +237,24 @@ def _slstm_out(y, xin, p, cfg):
     return dense(y, p["w_out"])
 
 
+def slstm_scan(gx, w_r, bias, h, c, n, m):
+    """The sLSTM cell over time: ``gx`` (B,S,H,4hd) the gates' input
+    part, (h, c, n, m) (each (B,H,hd)) the state it starts from.  Returns
+    every step's ``h``, (B,S,H,hd)."""
+    p = {"w_r": w_r, "bias": bias}
+    _, hs = scan_or_unroll(lambda cr, g: slstm_step(cr, g, p), (h, c, n, m),
+                           torch.movedim(gx, 1, 0))
+    return torch.movedim(hs, 0, 1)
+
+
 def slstm_block_train(xin, p, cfg):
     b, s, d = xin.shape
     state = slstm_init_state(cfg, b, xin.device)
     gx = mm(xin, p["w_x"])                                # (B,S,H,4hd)
-    init = (state["h"], state["c"], state["n"], state["m"])
-    _, hs = scan_or_unroll(lambda c, g: slstm_step(c, g, p), init,
-                           torch.movedim(gx, 1, 0))
-    return _slstm_out(torch.movedim(hs, 0, 1), xin, p, cfg)
+    hs = batch_local(slstm_scan, (gx, p["w_r"], p["bias"], state["h"],
+                                  state["c"], state["n"], state["m"]),
+                     (0, None, None, 0, 0, 0, 0))
+    return _slstm_out(hs, xin, p, cfg)
 
 
 def slstm_init_state(cfg, batch: int, device) -> Dict:

@@ -4,8 +4,9 @@ reference's (``repro.launch.dryrun``): the cell configuration helpers
 reference's configs for every arch and shape; and, in a process of its
 own with a fake group (never in this pytest worker), a smoke-config
 train cell and a decode cell of a dense arch and a decode cell of an MoE
-arch on a fake 4x4 mesh reach ``status: "ok"`` with collectives counted
-and the argument bytes of the specs' arithmetic, while a cell that
+arch on a fake 4x4 mesh reach ``status: "ok"`` with collectives and the
+explicit rules that fired counted and the argument bytes of the specs'
+arithmetic, while a cell that
 reaches an op DTensor has no sharding rule for records ``status:
 "error"`` naming the op; and the census of a dense decode cell on a fake
 2x2 mesh equals its arithmetic.
@@ -197,9 +198,20 @@ def test_smoke_cells_on_a_fake_four_by_four_mesh(tmp_path):
         assert saved == rec
     # the gradients of the batch-sharded loss are reduced
     assert train["collectives"]["all-reduce"]["count"] >= 1
+    # every explicit rule that fired is counted in the record: the einsum
+    # and product rules of each layer, the pending sums reduced, and the
+    # decode step's k and v row writes of each layer
+    for rec in (train, decode):
+        assert all(isinstance(n, int) and n > 0
+                   for n in rec["rules"].values()), rec["rules"]
+        assert rec["rules"]["einsum"] >= 2 and rec["rules"]["matmul"] >= 2
+        assert rec["rules"]["reduce"] >= 1
+    assert decode["rules"]["row_write"] == 2 * get_smoke("qwen2.5-3b").n_layers
+    assert "row_write" not in train["rules"]
     # the MoE dispatch's bincount counts its gathered expert ids
     assert moe["status"] == "ok", moe.get("error")
     assert moe["collectives"]["all-gather"]["count"] >= 1
+    assert moe["rules"]["bincount"] >= 1
     assert opaque["status"] == "error"
     assert opaque["op"] == "dryrun_test.opaque.default", opaque["error"]
 

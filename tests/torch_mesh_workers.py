@@ -47,7 +47,11 @@ def _rank_main(target: str, rank: int, world: int, store: str, out: str,
             init_distributed(backend, device=device,
                              init_method=f"file://{store}")
         result = globals()[target](rank, world, *args)
-        if init:
+        if dist.is_initialized():
+            # every rank is done with whatever group is up (this one's, or
+            # one the target started) before any rank destroys it; a rank
+            # that raised skips this, and its peers' wait ends at the
+            # group's timeout or the parent's deadline
             dist.barrier()
         with open(path, "wb") as f:
             pickle.dump({"ok": result}, f)
